@@ -1,0 +1,245 @@
+"""Synthetic posed RGB-D sequence renderer (textured room scene).
+
+Counterpart of `flame_ros_tpu/datasets/synthetic.py`: a deterministic
+source of grayscale frames + exact depth + exact 6-DoF poses. Bounded
+textured planes (and, in the "primitives" scene, spheres) are ray-cast
+analytically on the port's device: with RDF camera rays r = Kinv (u,v,1)
+(z = 1) the hit parameter along the world ray equals camera z-depth, so
+depth maps are exact. Textures are multi-octave value noise whose random
+tables come from numpy generators seeded per plane — the same tables as
+the JAX package's.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from flame_ros_torch.geometry.camera import Pinhole
+from flame_ros_torch.geometry.se3 import SE3
+from flame_ros_torch.utils.device import resolve_device
+
+VGA = Pinhole(fx=525.0, fy=525.0, cx=319.5, cy=239.5, width=640, height=480)
+QVGA = Pinhole(fx=262.5, fy=262.5, cx=159.5, cy=119.5, width=320, height=240)
+
+
+def _plane(p, n, tu, tv, eu, ev, seed):
+    return (np.array(p, np.float32), np.array(n, np.float32),
+            np.array(tu, np.float32), np.array(tv, np.float32),
+            np.float32(eu), np.float32(ev), seed)
+
+
+def _room_planes():
+    """(point, normal, tangent_u, tangent_v, half_u, half_v, tex_seed)."""
+    return [
+        _plane([0, 0, 4.0], [0, 0, -1], [1, 0, 0], [0, 1, 0], 3.0, 2.0, 1),
+        _plane([-2.5, 0, 2.0], [1, 0, 0], [0, 0, 1], [0, 1, 0], 3.0, 2.0, 2),
+        _plane([2.5, 0, 2.0], [-1, 0, 0], [0, 0, 1], [0, 1, 0], 3.0, 2.0, 3),
+        _plane([0, 1.5, 2.0], [0, -1, 0], [1, 0, 0], [0, 0, 1], 3.0, 3.0, 4),
+        _plane([0, -1.5, 2.0], [0, 1, 0], [1, 0, 0], [0, 0, 1], 3.0, 3.0, 5),
+        _plane([0.6, 0.9, 2.2], [0, 0, -1], [1, 0, 0], [0, 1, 0], 0.6, 0.6,
+               6),
+        _plane([0.6, 0.3, 2.5], [0, -1, 0], [1, 0, 0], [0, 0, 1], 0.6, 0.3,
+               7),
+        _plane([-1.0, -0.2, 2.8], [0.5547, 0, -0.83205],
+               [0.83205, 0, 0.5547], [0, 1, 0], 0.7, 0.7, 8),
+    ]
+
+
+def _primitive_planes():
+    """Floating boxes over a back wall + floor (depth discontinuities)."""
+    out = [
+        _plane([0, 0, 4.5], [0, 0, -1], [1, 0, 0], [0, 1, 0], 3.4, 2.4, 11),
+        _plane([0, 1.6, 2.4], [0, -1, 0], [1, 0, 0], [0, 0, 1], 3.4, 3.4, 12),
+    ]
+    boxes = [
+        ((-0.9, 0.45, 1.9), (0.35, 0.30, 0.25), 13),
+        ((0.75, -0.35, 2.6), (0.40, 0.35, 0.30), 16),
+        ((0.1, 0.85, 3.2), (0.55, 0.25, 0.25), 19),
+    ]
+    for (cx, cy, cz), (ex, ey, ez), seed in boxes:
+        out.append(_plane([cx, cy, cz - ez], [0, 0, -1],
+                          [1, 0, 0], [0, 1, 0], ex, ey, seed))
+        out.append(_plane([cx, cy - ey, cz], [0, -1, 0],
+                          [1, 0, 0], [0, 0, 1], ex, ez, seed + 1))
+        out.append(_plane([cx - ex, cy, cz], [-1, 0, 0],
+                          [0, 0, 1], [0, 1, 0], ez, ey, seed + 2))
+    return out
+
+
+def _primitive_spheres():
+    """(center, radius, seed): curved occluders."""
+    return [
+        (np.array([0.0, -0.55, 2.1], np.float32), np.float32(0.38), 23),
+        (np.array([-1.15, -0.15, 3.0], np.float32), np.float32(0.45), 27),
+    ]
+
+
+def _value_noise_octave(u, v, table):
+    """Smoothstep-interpolated value noise from a random grid."""
+    S = table.shape[0]
+    u = torch.clamp(u, 0.0, S - 1.001)
+    v = torch.clamp(v, 0.0, S - 1.001)
+    u0 = torch.floor(u).to(torch.int64)
+    v0 = torch.floor(v).to(torch.int64)
+    fu = u - u0
+    fv = v - v0
+    fu = fu * fu * (3.0 - 2.0 * fu)
+    fv = fv * fv * (3.0 - 2.0 * fv)
+    i00 = table[v0, u0]
+    i01 = table[v0, u0 + 1]
+    i10 = table[v0 + 1, u0]
+    i11 = table[v0 + 1, u0 + 1]
+    return ((i00 * (1 - fu) + i01 * fu) * (1 - fv)
+            + (i10 * (1 - fu) + i11 * fu) * fv)
+
+
+def _texture(tu, tv, seed: int, eu: float, ev: float):
+    """Procedural grayscale texture in [20, 235]: multi-octave value
+    noise."""
+    rng = np.random.default_rng(seed)
+    val = torch.zeros_like(tu)
+    total = 0.0
+    for size, amp in ((12, 1.0), (48, 0.65), (192, 0.45)):
+        table = torch.from_numpy(
+            rng.uniform(-1.0, 1.0, (size, size)).astype(np.float32)).to(
+                tu.device)
+        u = (tu / eu * 0.5 + 0.5) * (size - 1)
+        v = (tv / ev * 0.5 + 0.5) * (size - 1)
+        val = val + amp * _value_noise_octave(u, v, table)
+        total += amp
+    val = val / total
+    return torch.clamp(val * 0.5 + 0.5, 0.0, 1.0) * 215.0 + 20.0
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def render_frame(cam: Pinhole, pose_q, pose_t, scene: str = "room"):
+    """Render (gray [H,W] f32 in [0,255], depth [H,W] f32) for pose T_wc,
+    on the device of `pose_q`."""
+    dev = pose_q.device
+    H, W = cam.height, cam.width
+    u = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    rays = cam.ray(torch.stack([u, v], dim=-1))
+    T = SE3(pose_q, pose_t)
+    d_w = T.rotate(rays)
+    o_w = pose_t
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    best_depth = torch.full((H, W), float("inf"), device=dev)
+    best_val = torch.zeros((H, W), device=dev)
+    planes = _room_planes() if scene == "room" else _primitive_planes()
+    for (p0, n, tu_ax, tv_ax, eu, ev, seed) in planes:
+        p0, n = t(p0), t(n)
+        denom = _dot(d_w, n)
+        s = _dot(p0 - o_w, n) / torch.where(
+            torch.abs(denom) < 1e-9, float("inf"), denom)
+        hit_w = o_w + s[..., None] * d_w
+        rel = hit_w - p0
+        tu = _dot(rel, t(tu_ax))
+        tv = _dot(rel, t(tv_ax))
+        inside = (torch.abs(tu) <= eu) & (torch.abs(tv) <= ev) & (s > 0.05)
+        depth = torch.where(inside, s, float("inf"))
+        closer = depth < best_depth
+        best_val = torch.where(closer, _texture(tu, tv, seed, float(eu),
+                                                float(ev)), best_val)
+        best_depth = torch.minimum(best_depth, depth)
+
+    if scene == "primitives":
+        for (c, r, seed) in _primitive_spheres():
+            c = t(c)
+            r = float(r)
+            oc = o_w - c
+            a = _dot(d_w, d_w)
+            b = 2.0 * _dot(d_w, oc)
+            c0 = _dot(oc, oc) - r * r
+            disc = b * b - 4.0 * a * c0
+            s = (-b - torch.sqrt(torch.clamp(disc, min=0.0))) / (2.0 * a)
+            hit = (disc > 0.0) & (s > 0.05)
+            depth_s = torch.where(hit, s, float("inf"))
+            closer = depth_s < best_depth
+            p = o_w + s[..., None] * d_w - c
+            lon = torch.atan2(p[..., 1], p[..., 0])
+            lat = torch.asin(torch.clamp(p[..., 2] / r, -1.0, 1.0))
+            tex = _texture(lon, lat, seed, np.pi, np.pi / 2)
+            best_val = torch.where(closer, tex, best_val)
+            best_depth = torch.minimum(best_depth, depth_s)
+    elif scene != "room":
+        raise ValueError(f"unknown scene {scene!r}")
+
+    finite = torch.isfinite(best_depth)
+    gray = torch.where(finite, best_val, torch.zeros_like(best_val))
+    depth = torch.where(finite, best_depth, torch.zeros_like(best_depth))
+    return gray, depth
+
+
+def make_trajectory(n_frames: int, motion: str = "strafe",
+                    device=None) -> SE3:
+    """Smooth camera trajectory, camera-to-world, RDF world."""
+    ts = np.linspace(0.0, 1.0, n_frames, dtype=np.float32)
+    zeros = np.zeros_like(ts)
+    if motion == "strafe":
+        tx = 0.6 * np.sin(2 * np.pi * ts)
+        ty = 0.18 * (1.0 - np.cos(2 * np.pi * ts))
+        tz = 0.15 * ts
+        yaw = 0.05 * np.sin(2 * np.pi * ts)
+        taus = np.stack([tx, ty, tz, zeros, yaw, zeros], axis=-1)
+    elif motion == "forward":
+        tx = 0.05 * np.sin(2 * np.pi * ts)
+        taus = np.stack([tx, zeros, 0.9 * ts, zeros, zeros, zeros], axis=-1)
+    elif motion == "rotation":
+        tx = 0.06 * np.sin(2 * np.pi * ts)
+        ty = 0.02 * (1.0 - np.cos(2 * np.pi * ts))
+        yaw = 0.30 * np.sin(2 * np.pi * ts)
+        pitch = 0.06 * np.sin(4 * np.pi * ts)
+        taus = np.stack([tx, ty, zeros, pitch, yaw, zeros], axis=-1)
+    elif motion == "mav":
+        tx = 0.5 * np.sin(2 * np.pi * ts)
+        ty = 0.15 * np.sin(4 * np.pi * ts + 0.7)
+        tz = 0.45 * (1.0 - np.cos(2 * np.pi * ts))
+        roll = 0.15 * np.sin(4 * np.pi * ts)
+        pitch = 0.12 * np.sin(4 * np.pi * ts + 1.1)
+        yaw = 0.25 * np.sin(2 * np.pi * ts + 0.4)
+        taus = np.stack([tx, ty, tz, pitch, yaw, roll], axis=-1)
+    elif motion == "static":
+        taus = np.zeros((n_frames, 6), np.float32)
+    else:
+        raise ValueError(f"unknown motion {motion}")
+    return SE3.exp(taus.astype(np.float32), device=device)
+
+
+@dataclass
+class SyntheticSequence:
+    cam: Pinhole
+    images: torch.Tensor      # [N, H, W] float32, grayscale 0..255
+    depths: torch.Tensor      # [N, H, W] float32 meters (0 where invalid)
+    poses: SE3                # batched [N]
+    timestamps: np.ndarray    # [N] seconds
+
+    def __len__(self):
+        return self.images.shape[0]
+
+
+def make_sequence(n_frames: int = 30, cam: Pinhole = QVGA,
+                  motion: str = "strafe", fps: float = 30.0,
+                  scene: str = "room", device=None) -> SyntheticSequence:
+    """Render a posed sequence on `device` (the card unless the caller
+    asks for another device). GT depths and poses are exact. (The JAX
+    package's texture-gain and exposure stress knobs are not ported.)"""
+    dev = resolve_device(device)
+    poses = make_trajectory(n_frames, motion, device=dev)
+    imgs, deps = [], []
+    for i in range(n_frames):
+        g, d = render_frame(cam, poses.q[i], poses.t[i], scene)
+        imgs.append(torch.clamp(g, 0.0, 255.0))
+        deps.append(d)
+    return SyntheticSequence(
+        cam=cam, images=torch.stack(imgs), depths=torch.stack(deps),
+        poses=poses,
+        timestamps=np.arange(n_frames, dtype=np.float64) / fps)

@@ -1,0 +1,215 @@
+"""Offline batch runner over posed frames (synthetic dataset).
+
+Counterpart of `run_offline` and the synthetic branch of `main` in
+`flame_ros_tpu/frontends/offline_runner.py`: drive the engine frame by
+frame, compute GT truth stats per frame (confusion matrix + stats.txt,
+reference protocol), stream per-frame telemetry as JSONL, and print one
+summary JSON line.
+
+Usage:
+  python -m flame_ros_torch.frontends.offline_runner --dataset synthetic \\
+      --frames 60 --resolution vga --out /tmp/flame_out [--device cuda]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time as time_mod
+from dataclasses import dataclass
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+
+from flame_ros_torch.config import FlameParams
+from flame_ros_torch.eval.metrics import (StatsFileWriter, TruthStats,
+                                          depth_metrics)
+from flame_ros_torch.geometry.se3 import SE3
+from flame_ros_torch.models.engine import Flame
+from flame_ros_torch.utils.device import resolve_device
+from flame_ros_torch.utils.load_tracker import LoadTracker
+
+
+@dataclass
+class RunResult:
+    frames_processed: int = 0
+    frames_failed: int = 0
+    fps: float = 0.0
+    mean_rmse: float = float("nan")
+    mean_precision: float = float("nan")
+    mean_recall: float = float("nan")
+    final_coverage: float = 0.0
+    # Monodepth metrics on the final frame's dense map (meters).
+    final_abs_rel: float = float("nan")
+    final_delta1: float = float("nan")
+    stats_path: Optional[str] = None
+
+
+@dataclass
+class Frame:
+    img_id: int
+    time: float
+    gray: object        # [H, W] numpy array or tensor
+    depth: object       # [H, W] meters, 0 where invalid
+    quat: np.ndarray    # (w, x, y, z)
+    trans: np.ndarray
+
+
+def _has_gt(depth) -> bool:
+    if isinstance(depth, torch.Tensor):
+        return bool((depth > 0).any())
+    return bool(np.any(np.asarray(depth) > 0))
+
+
+def _final_depth_metrics(res: RunResult, engine: Flame, last_gt) -> None:
+    if last_gt is None:
+        return
+    gt = (last_gt.detach().cpu() if isinstance(last_gt, torch.Tensor)
+          else torch.from_numpy(np.asarray(last_gt, np.float32)))
+    m = depth_metrics(torch.from_numpy(engine.get_inverse_depth_map()),
+                      gt.to(torch.float32))
+    res.final_abs_rel = float(m["abs_rel"])
+    res.final_delta1 = float(m["delta1"])
+
+
+def run_offline(frames: Iterable, cam, params: FlameParams,
+                out_dir: Optional[str] = None,
+                max_frames: Optional[int] = None,
+                device=None, engine: Optional[Flame] = None) -> RunResult:
+    """Drive the engine over frames with (img_id, time, gray, depth, quat,
+    trans) attributes. Runs on the card unless `device` says otherwise;
+    `engine` lets a caller pass (and afterwards inspect) its own engine."""
+    if engine is None:
+        engine = Flame(cam.width, cam.height, cam=cam, params=params,
+                       device=device)
+    writer = StatsFileWriter(out_dir) if out_dir else None
+    jsonl = open(os.path.join(out_dir, "telemetry.jsonl"), "w") \
+        if out_dir else None
+    load = LoadTracker()
+    pf_every = params.input.poseframe_subsample_factor
+    sub = params.input.subsample_factor
+    res = RunResult()
+    rmses, precs, recs = [], [], []
+    last_gt = None
+    t_start = time_mod.perf_counter()
+    n_proc = 0
+    try:
+        for frame in frames:
+            if max_frames is not None and frame.img_id >= max_frames:
+                break
+            if frame.img_id % sub:
+                continue
+            pose = SE3.from_quat_trans(frame.quat, frame.trans)
+            is_pf = (n_proc % pf_every) == 0
+            has_gt = _has_gt(frame.depth)
+            if has_gt:
+                last_gt = frame.depth
+            engine.stats_.tick("sense")
+            ok = engine.update(frame.time, frame.img_id, pose, frame.gray,
+                               is_pf,
+                               gt_depth=frame.depth if has_gt else None)
+            engine.stats_.tock("sense")
+            if not ok:
+                res.frames_failed += 1
+                continue
+            n_proc += 1
+            st = engine.stats_
+            rec = engine.flush_stats()  # one small device-to-host copy
+            if has_gt:
+                ts = TruthStats.from_record(rec)
+                rmses.append(ts.rmse)
+                if np.isfinite(ts.precision):
+                    precs.append(ts.precision)
+                if np.isfinite(ts.recall):
+                    recs.append(ts.recall)
+                if writer:
+                    writer.append(
+                        n_proc - 1, frame.time, st.timings("sense"),
+                        int(rec["num_vtx"]), int(rec["num_tris"]), ts,
+                        rec["total_photo_error"], rec["avg_photo_error"])
+            elapsed = time_mod.perf_counter() - t_start
+            st.set("fps", n_proc / max(elapsed, 1e-6))
+            st.set("fps_max", 1e3 / max(st.timings("update"), 1e-6))
+            if n_proc % params.output.load_integration_factor == 0:
+                snap = load.get()
+                st.set("pid_load_cpu", snap.pid_load.cpu)
+                st.set("pid_load_mem", snap.pid_load.mem)
+                st.set("sys_load_cpu", snap.sys_load.cpu)
+            if jsonl:
+                st.dump_jsonl(jsonl, frame.img_id, frame.time)
+    finally:
+        if jsonl:
+            jsonl.close()
+
+    res.frames_processed = n_proc
+    res.fps = n_proc / max(time_mod.perf_counter() - t_start, 1e-6)
+    if rmses:
+        res.mean_rmse = float(np.mean(rmses))
+    if precs:
+        res.mean_precision = float(np.mean(precs))
+    if recs:
+        res.mean_recall = float(np.mean(recs))
+    _final_depth_metrics(res, engine, last_gt)
+    res.final_coverage = float(engine.stats_.stats("coverage"))
+    if writer:
+        res.stats_path = writer.path
+    return res
+
+
+def synthetic_frames(seq):
+    """Frames of a SyntheticSequence (images stay on its device)."""
+    q = seq.poses.q.detach().cpu().numpy()
+    t = seq.poses.t.detach().cpu().numpy()
+    for i in range(len(seq)):
+        yield Frame(i, float(seq.timestamps[i]), seq.images[i],
+                    seq.depths[i], q[i], t[i])
+
+
+def _round(x, nd):
+    return round(x, nd) if np.isfinite(x) else None
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--dataset", choices=["synthetic"], required=True)
+    p.add_argument("--config", help="FlameParams YAML")
+    p.add_argument("--out", help="output directory")
+    p.add_argument("--frames", type=int, help="max frames")
+    p.add_argument("--motion", default="strafe",
+                   help="synthetic trajectory: strafe/forward/rotation/"
+                        "mav/static")
+    p.add_argument("--scene", default="room", choices=["room", "primitives"])
+    p.add_argument("--resolution", default="qvga", choices=["qvga", "vga"])
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda)")
+    args = p.parse_args(argv)
+
+    from flame_ros_torch.datasets.synthetic import QVGA, VGA, make_sequence
+    device = resolve_device(args.device)
+    params = (FlameParams.from_yaml(args.config) if args.config
+              else FlameParams())
+    cam = VGA if args.resolution == "vga" else QVGA
+    seq = make_sequence(n_frames=args.frames or 60, cam=cam,
+                        motion=args.motion, scene=args.scene, device=device)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    res = run_offline(synthetic_frames(seq), cam, params, out_dir=args.out,
+                      max_frames=args.frames, device=device)
+    summary = {
+        "frames": res.frames_processed,
+        "failed": res.frames_failed,
+        "fps": round(res.fps, 2),
+        "idepth_rmse": _round(res.mean_rmse, 5),
+        "precision": _round(res.mean_precision, 4),
+        "recall": _round(res.mean_recall, 4),
+        "coverage": round(res.final_coverage, 4),
+        "abs_rel": _round(res.final_abs_rel, 4),
+        "delta1": _round(res.final_delta1, 4),
+    }
+    print(json.dumps(summary))
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,867 @@
+"""The FLaME engine on torch tensors: per-frame dense monocular depth.
+
+Counterpart of `flame_ros_tpu/models/engine.py` for the per-frame
+external-pose path (`Flame.update`). API parity with flame::Flame
+(reference ctor `Flame(width, height, K, Kinv, params)`
+src/flame_nodelet.cc:523-527, `update(time, id, pose, gray,
+is_poseframe)` :634, depth-map getter, `stats()`).
+
+All numeric state is an `EngineState` of fixed-shape tensors on one
+device (same field names, shapes and dtypes as the JAX package's, so the
+two can be compared leaf by leaf and a state carried from one to the
+other — `state_from_numpy` / `state_to_numpy`). One frame is:
+
+  build_pyramid -> _track_step (epipolar filter, feature/graph projection,
+  and on poseframes the keyframe-ring insert with re-anchor, detection and
+  slot allocation) -> _smooth_step (NLTGV2 sweeps, raster, photometric
+  telemetry, packed stats) -> on poseframes, host Delaunay of the current
+  vertex positions, installed for the next frame.
+
+That order, and the uint8 truncation of the input image, follow the JAX
+package's default `update` (its single-frame window path).
+
+Not ported yet: the windowed/deferred streaming path (`update_window`,
+`prefetch_window`, deferred triangulation), the truth-injection harness,
+the mesh/normal/filtered getters, pose-graph updates and checkpoints.
+"""
+from __future__ import annotations
+
+import time as time_mod
+from typing import Mapping, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from flame_ros_torch.config import FlameParams
+from flame_ros_torch.geometry.camera import Pinhole
+from flame_ros_torch.geometry.se3 import quat_conj, quat_mul, quat_rotate
+from flame_ros_torch.graph.delaunay import edges_from_triangles, triangulate
+from flame_ros_torch.ops import epipolar as ep_ops
+from flame_ros_torch.ops import nltgv2 as reg_ops
+from flame_ros_torch.ops import raster as raster_ops
+from flame_ros_torch.ops.detection import (detect_features,
+                                           occupancy_from_features)
+from flame_ros_torch.ops.interp import bilinear
+from flame_ros_torch.ops.pyramid import build_pyramid
+from flame_ros_torch.utils.device import resolve_device
+from flame_ros_torch.utils.stats_tracker import StatsTracker
+
+NUM_LEVELS = 3
+NO_WATERMARK = 2 ** 30
+
+
+class EngineState(NamedTuple):
+    """Complete device-resident engine state."""
+    feat: ep_ops.FeatureFilterState
+    vtx_uv: torch.Tensor       # [N, 2] vertex positions in current frame
+    vtx_x: torch.Tensor        # [N] smoothed idepth (current frame)
+    vtx_w: torch.Tensor        # [N, 2] plane gradients
+    vtx_z: torch.Tensor        # [N] data-term anchor (projected filter mean)
+    vtx_in_graph: torch.Tensor  # [N] bool
+    edge_q: torch.Tensor       # [E, 3] duals
+    edges: torch.Tensor        # [E, 2] int32
+    edge_valid: torch.Tensor   # [E] bool
+    inc_edges: torch.Tensor    # [N, D] int32 vertex->edge incidence
+    inc_sign: torch.Tensor     # [N, D] float32 (+1 tail / -1 head / 0 pad)
+    tris: torch.Tensor         # [T, 3] int32
+    tri_valid: torch.Tensor    # [T] bool
+    kf_pyrs: torch.Tensor      # [K, L, H, W] keyframe pyramids
+    kf_q: torch.Tensor         # [K, 4]
+    kf_t: torch.Tensor         # [K, 3]
+    kf_valid: torch.Tensor     # [K] bool
+    kf_ids: torch.Tensor       # [K] int32 (frame id of each poseframe)
+    prev_q: torch.Tensor       # [4] previous processed frame
+    prev_t: torch.Tensor       # [3]
+    last_idmap: torch.Tensor   # [H, W] int32 triangle ids (-1 uncovered)
+    last_planes: torch.Tensor  # [T, 3] affine idepth planes
+    cell_err: torch.Tensor     # [nCy, nCx] per-cell mean abs photo error
+    # Frame-id watermark of the installed topology: triangles whose
+    # vertex slots were re-detected after the triangulation (frame_id >
+    # watermark) are stale and masked until the next install.
+    topo_frame_id: torch.Tensor  # [] int32
+
+
+def init_state(params: FlameParams, cam: Pinhole, device) -> EngineState:
+    eng = params.engine
+    N, E, T, K = (eng.max_features, eng.max_edges, eng.max_triangles,
+                  eng.max_keyframes)
+    D = eng.max_vertex_degree
+    H, W = cam.height, cam.width
+    f32, i32 = torch.float32, torch.int32
+
+    def z(shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def full(shape, val, dtype=f32):
+        return torch.full(shape, val, dtype=dtype, device=device)
+
+    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=f32, device=device)
+    feat = ep_ops.FeatureFilterState(
+        uv_ref=z((N, 2)), kf_idx=z((N,), i32), mu=full((N,), 0.5),
+        var=full((N,), eng.init_idepth_var), dropouts=z((N,), i32),
+        valid=z((N,), torch.bool), frame_id=z((N,), i32))
+    ws = params.features.detection.win_size
+    return EngineState(
+        feat=feat, vtx_uv=z((N, 2)), vtx_x=full((N,), 0.5),
+        vtx_w=z((N, 2)), vtx_z=full((N,), 0.5),
+        vtx_in_graph=z((N,), torch.bool), edge_q=z((E, 3)),
+        edges=z((E, 2), i32), edge_valid=z((E,), torch.bool),
+        inc_edges=z((N, D), i32), inc_sign=z((N, D)),
+        tris=z((T, 3), i32), tri_valid=z((T,), torch.bool),
+        kf_pyrs=z((K, NUM_LEVELS, H, W)), kf_q=ident.repeat(K, 1),
+        kf_t=z((K, 3)), kf_valid=z((K,), torch.bool),
+        kf_ids=full((K,), -1, i32), prev_q=ident.clone(), prev_t=z((3,)),
+        last_idmap=full((H, W), -1, i32), last_planes=z((T, 3)),
+        cell_err=z((H // ws, W // ws)),
+        topo_frame_id=torch.tensor(NO_WATERMARK, dtype=i32, device=device))
+
+
+def state_to_numpy(state: EngineState) -> dict:
+    """Flat {name: numpy array} view of a state; feature-filter fields
+    are keyed "feat.<field>"."""
+    out = {f"feat.{k}": v.detach().cpu().numpy()
+           for k, v in state.feat._asdict().items()}
+    for k, v in state._asdict().items():
+        if k != "feat":
+            out[k] = v.detach().cpu().numpy()
+    return out
+
+
+def state_from_numpy(d: Mapping, device, like: Optional[EngineState] = None
+                     ) -> EngineState:
+    """EngineState from a flat {name: array} mapping in the layout of
+    `state_to_numpy` (the JAX package's EngineState, with "feat.<field>"
+    keys for its feature-filter fields, converts the same way). With
+    `like`, every leaf's shape and dtype is checked against it."""
+    def leaf(name, ref):
+        t = torch.from_numpy(np.array(d[name], copy=True)).to(device)
+        if ref is not None:
+            if tuple(t.shape) != tuple(ref.shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} vs "
+                                 f"{tuple(ref.shape)}")
+            t = t.to(ref.dtype)
+        return t
+
+    feat = ep_ops.FeatureFilterState(**{
+        k: leaf(f"feat.{k}", None if like is None else getattr(like.feat, k))
+        for k in ep_ops.FeatureFilterState._fields})
+    rest = {k: leaf(k, None if like is None else getattr(like, k))
+            for k in EngineState._fields if k != "feat"}
+    return EngineState(feat=feat, **rest)
+
+
+def _masked_median(vals, mask, fallback: float):
+    """Median of vals[mask] (sort-based, fixed shape), or fallback."""
+    big = torch.where(mask, vals, torch.full_like(vals, float("inf")))
+    s = torch.sort(big).values
+    n = torch.sum(mask.to(torch.int64))
+    med = s[torch.clamp(n // 2, 0, vals.shape[0] - 1)]
+    return torch.where(n > 0, med, torch.full_like(med, fallback))
+
+
+def _project_graph_core(state: EngineState, cur_q, cur_t, cam: Pinhole):
+    """Transform last frame's smoothed vertex idepth into the current
+    frame (the reference's project_graph stage). Returns (x_proj [N],
+    graph_ok [N])."""
+    qc = quat_conj(cur_q)
+    q_cp = quat_mul(qc, state.prev_q)
+    t_cp = quat_rotate(qc, state.prev_t - cur_t)
+    ray_prev = cam.ray(state.vtx_uv)
+    xprev = torch.clamp(state.vtx_x, min=1e-6)
+    X_c = quat_rotate(q_cp[None, :], ray_prev) / xprev[:, None] \
+        + t_cp[None, :]
+    x_proj = 1.0 / torch.clamp(X_c[..., 2], min=1e-6)
+    graph_ok = state.vtx_in_graph & (X_c[..., 2] > 1e-6)
+    return x_proj, graph_ok
+
+
+def _set_row(t, idx, val):
+    out = t.clone()
+    out[idx] = val
+    return out
+
+
+def _track_step(state: EngineState, img_pyr, cur_q, cur_t, frame_id: int,
+                kf_slot: int, is_poseframe: bool, *, cam: Pinhole,
+                params: FlameParams):
+    """Epipolar update -> graph/feature projection -> on poseframes:
+    keyframe ring insert (with re-anchor of the recycled slot's features),
+    detection and free-slot allocation. Returns (state, status, uv_match,
+    counts_vec [7], (det_uv, det_take))."""
+    eng = params.engine
+    trk = params.features.tracking
+    det = params.features.detection
+    reg = params.regularization.nltgv2
+    dev = img_pyr.device
+    f32 = torch.float32
+
+    res = ep_ops.epipolar_update(
+        state.feat, state.kf_pyrs, state.kf_q, state.kf_t, img_pyr, cur_q,
+        cur_t, cam=cam, num_samples=eng.num_search_samples,
+        patch_size=trk.win_size, num_levels=NUM_LEVELS,
+        sigma_window=eng.sigma_window, idepth_min=eng.idepth_min,
+        idepth_max=eng.idepth_max, epipolar_line_var=trk.epipolar_line_var,
+        min_ref_patch_grad=eng.min_ref_patch_grad,
+        ambiguous_match_ratio=eng.ambiguous_match_ratio,
+        max_cost=eng.max_cost, max_dropouts=trk.max_dropouts,
+        max_idepth_var=trk.max_idepth_var, gather_dtype=eng.compute_dtype,
+        mode=eng.epipolar_mode, zero_mean_ssd=eng.zero_mean_ssd)
+    feat = res.state
+
+    uv_cur, z_cur, inb = ep_ops.project_features(
+        feat, state.kf_q, state.kf_t, cur_q, cur_t, cam)
+    x_proj, graph_ok = _project_graph_core(state, cur_q, cur_t, cam)
+    vtx_x = torch.where(graph_ok, x_proj, z_cur)
+    vtx_uv = uv_cur
+    counts = res.counts
+    n_cells = (cam.height // det.win_size) * (cam.width // det.win_size)
+
+    kf_pyrs, kf_q, kf_t = state.kf_pyrs, state.kf_q, state.kf_t
+    kf_valid, kf_ids = state.kf_valid, state.kf_ids
+    if is_poseframe:
+        # Keyframe ring recycling: features anchored to the recycled slot
+        # lose their reference imagery. reanchor_on_evict moves the
+        # converged ones to the newest surviving keyframe; the rest die.
+        doomed = (feat.valid & (feat.kf_idx == kf_slot)
+                  & state.kf_valid[kf_slot])
+        if eng.reanchor_on_evict:
+            K = state.kf_q.shape[0]
+            others = torch.arange(K, device=dev) != kf_slot
+            ids_masked = torch.where(state.kf_valid & others, state.kf_ids,
+                                     torch.full_like(state.kf_ids, -1))
+            j_new = torch.argmax(ids_masked)         # first maximum
+            has_target = ids_masked[j_new] >= 0
+            qA, tA = state.kf_q[kf_slot], state.kf_t[kf_slot]
+            qB, tB = state.kf_q[j_new], state.kf_t[j_new]
+            X_A = cam.backproject(feat.uv_ref,
+                                  torch.clamp(feat.mu, min=eng.idepth_min))
+            X_w = quat_rotate(qA[None, :], X_A) + tA[None, :]
+            X_B = quat_rotate(quat_conj(qB)[None, :], X_w - tB[None, :])
+            z_B = X_B[..., 2]
+            zs = torch.where(z_B > 1e-6, z_B, torch.ones_like(z_B))
+            u_B = cam.fx * X_B[..., 0] / zs + cam.cx
+            v_B = cam.fy * X_B[..., 1] / zs + cam.cy
+            mu_B = 1.0 / zs
+            pad = 4.0   # patch half-width margin
+            ok = (has_target & (z_B > 1e-6)
+                  & (u_B >= pad) & (u_B <= cam.width - 1 - pad)
+                  & (v_B >= pad) & (v_B <= cam.height - 1 - pad)
+                  & (mu_B >= eng.idepth_min) & (mu_B <= eng.idepth_max))
+            move = doomed & ok & (feat.var < reg.idepth_var_max)
+            ratio = mu_B / torch.clamp(feat.mu, min=1e-6)
+            var_B = feat.var * torch.square(ratio) * 2.0
+            feat = feat._replace(
+                uv_ref=torch.where(move[:, None],
+                                   torch.stack([u_B, v_B], -1),
+                                   feat.uv_ref),
+                kf_idx=torch.where(move, j_new.to(torch.int32),
+                                   feat.kf_idx),
+                mu=torch.where(move, mu_B, feat.mu),
+                var=torch.where(move, var_B, feat.var),
+                dropouts=torch.where(move, 0, feat.dropouts),
+                valid=feat.valid & ~(doomed & ~move))
+        else:
+            feat = feat._replace(valid=feat.valid & ~doomed)
+        kf_pyrs = _set_row(state.kf_pyrs, kf_slot, img_pyr)
+        kf_q = _set_row(state.kf_q, kf_slot, cur_q)
+        kf_t = _set_row(state.kf_t, kf_slot, cur_t)
+        kf_valid = _set_row(state.kf_valid, kf_slot, True)
+        kf_ids = _set_row(state.kf_ids, kf_slot, frame_id)
+
+        # Detection on free grid cells; min_error redetection re-opens
+        # occupied cells whose mesh no longer explains the image.
+        occ = occupancy_from_features(uv_cur, feat.valid & inb,
+                                      cam.height, cam.width, det.win_size)
+        occ = occ & ~(state.cell_err > det.min_error)
+        duv, _, dvalid = detect_features(
+            img_pyr[0], occ, win_size=det.win_size,
+            min_grad_mag=det.min_grad_mag,
+            do_letterbox=params.features.do_letterbox)
+
+        # Allocation: the k-th new detection goes to the k-th free slot.
+        N = feat.valid.shape[0]
+        free = ~feat.valid
+        det_rank = torch.cumsum(dvalid.to(torch.int64), 0) - 1
+        n_free = torch.sum(free.to(torch.int64))
+        take = dvalid & (det_rank < n_free)
+        med = _masked_median(
+            feat.mu, feat.valid & (feat.var < reg.idepth_var_max),
+            eng.init_idepth)
+        pred, pok = raster_ops.sample_idepth_at(
+            state.last_idmap, state.last_planes, duv)
+        use_pred = pok & torch.isfinite(pred) & (pred > eng.idepth_min)
+        if not reg.init_with_prediction:
+            use_pred = torch.zeros_like(use_pred)
+        mu0 = torch.where(use_pred, torch.nan_to_num(pred, nan=0.5), med)
+        var0 = torch.where(use_pred,
+                           torch.full_like(pred, eng.init_idepth_var * 0.5),
+                           torch.full_like(pred, eng.init_idepth_var))
+        # Free slots in ascending order; detection d (rank r) -> the r-th.
+        free_slots = torch.argsort((~free).to(torch.int8), stable=True)
+        slot = free_slots[torch.clamp(det_rank, 0, N - 1)]
+        target = torch.where(take, slot, N)      # row N is a dummy
+        vals = torch.stack([duv[:, 0], duv[:, 1], mu0, var0], -1)
+        got = torch.zeros((N + 1, 4), dtype=f32, device=dev)
+        got.index_copy_(0, target, vals)
+        hit = torch.zeros(N + 1, dtype=torch.bool, device=dev)
+        hit.index_fill_(0, target, True)
+        got, hit = got[:N], hit[:N]
+        feat = feat._replace(
+            uv_ref=torch.where(hit[:, None], got[:, :2], feat.uv_ref),
+            kf_idx=torch.where(hit, kf_slot, feat.kf_idx),
+            mu=torch.where(hit, got[:, 2], feat.mu),
+            var=torch.where(hit, got[:, 3], feat.var),
+            dropouts=torch.where(hit, 0, feat.dropouts),
+            valid=feat.valid | hit,
+            frame_id=torch.where(hit, frame_id, feat.frame_id))
+        n_detected = torch.sum(take.to(torch.int32))
+        vtx_uv = torch.where(hit[:, None], got[:, :2], vtx_uv)
+        vtx_x = torch.where(hit, got[:, 2], vtx_x)
+        uv_cur, z_cur, inb = ep_ops.project_features(
+            feat, kf_q, kf_t, cur_q, cur_t, cam)
+        vtx_uv = torch.where(feat.valid[:, None], uv_cur, vtx_uv)
+        detections = (duv, take)
+    else:
+        n_detected = torch.zeros((), dtype=torch.int32, device=dev)
+        detections = (torch.zeros((n_cells, 2), dtype=f32, device=dev),
+                      torch.zeros((n_cells,), dtype=torch.bool, device=dev))
+
+    # --- graph eligibility: height gate (RDF world, height = -y) -------
+    X_cur_cam = cam.backproject(uv_cur, torch.clamp(z_cur, min=1e-6))
+    X_w = quat_rotate(cur_q[None, :], X_cur_cam) + cur_t[None, :]
+    height = -X_w[..., 1]
+    height_ok = (height >= reg.min_height) & (height <= reg.max_height)
+    in_graph = (feat.valid & inb & height_ok
+                & (feat.var <= reg.idepth_var_max))
+
+    new_state = state._replace(
+        feat=feat, vtx_uv=vtx_uv, vtx_x=vtx_x, vtx_z=z_cur,
+        vtx_in_graph=in_graph, kf_pyrs=kf_pyrs, kf_q=kf_q, kf_t=kf_t,
+        kf_valid=kf_valid, kf_ids=kf_ids, prev_q=cur_q, prev_t=cur_t)
+    counts_vec = torch.stack([c.to(f32) for c in (
+        counts["num_idepth_updates"], counts["num_fail_ref_patch_grad"],
+        counts["num_fail_ambiguous_match"], counts["num_fail_max_cost"],
+        counts["num_fail_max_dropouts"], counts["num_fail_max_var"],
+        n_detected)])
+    return new_state, res.status, res.uv_match, counts_vec, detections
+
+
+# Fixed layout of the per-frame stats vector: one small device-to-host
+# copy recovers all frame telemetry.
+DEVICE_STATS_KEYS = (
+    "num_feats", "num_vtx", "num_tris", "num_edges", "coverage",
+    "num_idepth_updates", "num_fail_ref_patch_grad",
+    "num_fail_ambiguous_match", "num_fail_max_cost",
+    "num_fail_max_dropouts", "num_fail_max_var", "num_detections",
+    "nltgv2_total_smoothness_cost", "nltgv2_avg_smoothness_cost",
+    "nltgv2_total_data_cost", "nltgv2_avg_data_cost",
+    "total_photo_error", "avg_photo_error",
+    # GT-evaluation block (-1 when no ground truth this frame):
+    "true_pos", "true_neg", "false_pos", "false_neg",
+    "total_idepth_error", "idepth_rmse",
+    # Health word: 1.0 = engine state finite, 0.0 = divergence detected
+    # (the next update() fails and recovers).
+    "health",
+)
+
+
+def _smooth_pd_setup(state: EngineState, *, params: FlameParams):
+    """Stale-topology masks + data weights for the NLTGV2 sweep: a slot
+    re-detected after the topology install is a different feature, so
+    triangles/edges touching it are masked until the next install."""
+    nl = params.regularization.nltgv2
+    v_same = state.feat.frame_id <= state.topo_frame_id
+    tri_fresh = state.tri_valid & v_same[state.tris.long()].all(-1)
+    edge_fresh = state.edge_valid & v_same[state.edges.long()].all(-1)
+    lam = reg_ops.data_weights(
+        state.feat.var, state.vtx_in_graph, data_factor=nl.data_factor,
+        adaptive=nl.adaptive_data_weights, rescale=nl.rescale_data)
+    return tri_fresh, edge_fresh, lam
+
+
+def _smooth_step(state: EngineState, img_pyr, cur_q, cur_t, track_counts,
+                 gt_depth, *, cam: Pinhole, params: FlameParams,
+                 has_gt: bool = False):
+    """NLTGV2 sweeps, then `_smooth_finish`. Returns (state, idepth map or
+    an empty tensor, stats_vec)."""
+    reg = params.regularization
+    nl = reg.nltgv2
+    eng = params.engine
+    vtx_x, vtx_w, edge_q = state.vtx_x, state.vtx_w, state.edge_q
+    tri_fresh, edge_fresh, lam = _smooth_pd_setup(state, params=params)
+    costs = {}
+    if reg.do_nltgv2:
+        top = reg_ops.build_topology(state.edges, edge_fresh, state.vtx_uv,
+                                     inc_edges=state.inc_edges,
+                                     inc_sign=state.inc_sign)
+        gs = reg_ops.GraphState(x=vtx_x, w=vtx_w, q=edge_q, x_bar=vtx_x,
+                                w_bar=vtx_w)
+        gs = reg_ops.pd_iterate(
+            gs, top, state.vtx_z, lam, state.vtx_in_graph,
+            num_iters=eng.pd_iters_per_frame, theta=nl.theta,
+            gate_tol=eng.pd_gate_tol)
+        costs = reg_ops.nltgv2_costs(gs, top, state.vtx_z, lam,
+                                     state.vtx_in_graph)
+        vtx_x, vtx_w, edge_q = gs.x, gs.w, gs.q
+    else:
+        vtx_x = torch.where(state.vtx_in_graph, state.vtx_z, vtx_x)
+    return _smooth_finish(state, img_pyr, cur_q, cur_t, track_counts,
+                          gt_depth, vtx_x, vtx_w, edge_q, costs, tri_fresh,
+                          edge_fresh, cam=cam, params=params, has_gt=has_gt)
+
+
+def _smooth_finish(state: EngineState, img_pyr, cur_q, cur_t, track_counts,
+                   gt_depth, vtx_x, vtx_w, edge_q, costs, tri_fresh,
+                   edge_fresh, *, cam: Pinhole, params: FlameParams,
+                   has_gt: bool):
+    """Graph filters, sticky-obstacle guard, rasterization, photometric
+    telemetry, health word, packed stats."""
+    reg = params.regularization
+    nl = reg.nltgv2
+    eng = params.engine
+    dev = vtx_x.device
+    f32 = torch.float32
+
+    if reg.do_median_filter:
+        vtx_x = reg_ops.graph_median(vtx_x, state.inc_edges, state.inc_sign,
+                                     state.edges, state.vtx_in_graph)
+    if reg.do_lowpass_filter:
+        vtx_x = reg_ops.graph_lowpass(vtx_x, state.inc_edges,
+                                      state.inc_sign, state.edges,
+                                      edge_fresh, state.vtx_in_graph)
+    if nl.check_sticky_obstacles:
+        sticky = (state.vtx_in_graph & (vtx_x > 0.5)
+                  & (vtx_x > 2.0 * torch.clamp(state.vtx_z, min=1e-6)))
+        vtx_x = torch.where(sticky, state.vtx_z, vtx_x)
+
+    # --- rasterize ------------------------------------------------------
+    idmap, planes = raster_ops.rasterize_ids(
+        state.vtx_uv, vtx_x, state.tris, tri_fresh, height=cam.height,
+        width=cam.width, use_kernel=bool(eng.use_pallas_raster),
+        kernel=eng.pallas_raster_kernel)
+    cov = torch.mean((idmap >= 0).to(f32))
+    idepth_map = (raster_ops.idepth_from_ids(idmap, planes) if has_gt
+                  else None)
+
+    # --- photometric error vs the newest keyframe, on a strided grid ---
+    ps = max(int(eng.photo_stride), 1)
+    kf_slot = torch.argmax(state.kf_ids)
+    hs, ws = cam.height // ps, cam.width // ps
+    u = (torch.arange(ws, dtype=f32, device=dev) * float(ps))[None, :] \
+        .expand(hs, ws)
+    v = (torch.arange(hs, dtype=f32, device=dev) * float(ps))[:, None] \
+        .expand(hs, ws)
+    sidx = (v * cam.width + u).to(torch.int64)
+    ids_s = idmap.reshape(-1)[sidx]
+    g_s = planes[ids_s.clamp(min=0).long()]
+    xi = g_s[..., 0] + g_s[..., 1] * u + g_s[..., 2] * v
+    xi = torch.where(ids_s >= 0, xi, torch.zeros_like(xi))
+    img_s = img_pyr[0].reshape(-1)[sidx]
+    ok = (ids_s >= 0) & (xi > 1e-3)
+    X = cam.backproject(torch.stack([u, v], -1), torch.clamp(xi, min=1e-3))
+    q_kf = state.kf_q[kf_slot]
+    q_kc = quat_mul(quat_conj(q_kf), cur_q)
+    t_kc = quat_rotate(quat_conj(q_kf), cur_t - state.kf_t[kf_slot])
+    X_kf = quat_rotate(q_kc[None, None, :], X) + t_kc[None, None, :]
+    behind = X_kf[..., 2] <= 1e-6
+    uv_kf = cam.project(torch.where(behind[..., None],
+                                    ep_ops.unit_z_like(X_kf), X_kf))
+    kf_img = state.kf_pyrs[kf_slot, 0]
+    vals, samp_ok = bilinear(kf_img, uv_kf)
+    perr = torch.abs(vals - img_s)
+    pmask = ok & samp_ok & ~behind
+    perr_m = torch.where(pmask, perr, torch.zeros_like(perr))
+    total_photo = float(ps * ps) * torch.sum(perr_m)
+    n_photo = torch.clamp(torch.sum(pmask.to(f32)), min=1.0)
+
+    # Per-detection-cell mean abs photo error (next poseframe's
+    # min_error redetection).
+    dw = params.features.detection.win_size
+    nCy, nCx = cam.height // dw, cam.width // dw
+    if dw % ps == 0:
+        s2 = dw // ps
+        e_c = perr_m[:nCy * s2, :nCx * s2].reshape(nCy, s2, nCx, s2) \
+            .sum((1, 3))
+        m_c = pmask[:nCy * s2, :nCx * s2].to(f32).reshape(
+            nCy, s2, nCx, s2).sum((1, 3))
+    else:
+        # Cell sums by one-hot row/column products (deterministic).
+        cyi = torch.clamp((v[:, 0] / dw).to(torch.int64), 0, nCy - 1)
+        cxi = torch.clamp((u[0] / dw).to(torch.int64), 0, nCx - 1)
+        Ry = (cyi[None, :] == torch.arange(nCy, device=dev)[:, None]).to(f32)
+        Rx = (cxi[None, :] == torch.arange(nCx, device=dev)[:, None]).to(f32)
+        e_c = Ry @ perr_m @ Rx.T
+        m_c = Ry @ pmask.to(f32) @ Rx.T
+    cell_err = e_c / torch.clamp(m_c, min=1.0)
+
+    health = (torch.isfinite(vtx_x).all()
+              & torch.isfinite(state.feat.mu).all()
+              & torch.isfinite(state.feat.var).all()
+              & torch.isfinite(cur_q).all()
+              & torch.isfinite(cur_t).all()).to(f32)
+
+    zero = torch.zeros((), dtype=f32, device=dev)
+    if has_gt:
+        from flame_ros_torch.eval.metrics import (depth_confusion_matrix,
+                                                  idepth_rmse)
+        cm = depth_confusion_matrix(idepth_map, gt_depth)
+        gt_block = [cm["true_pos"].to(f32), cm["true_neg"].to(f32),
+                    cm["false_pos"].to(f32), cm["false_neg"].to(f32),
+                    cm["total_error"], idepth_rmse(idepth_map, gt_depth)]
+    else:
+        gt_block = [zero - 1.0] * 6
+
+    def nsum(m):
+        return torch.sum(m.to(f32))
+
+    stats_vec = torch.stack([
+        nsum(state.feat.valid), nsum(state.vtx_in_graph),
+        nsum(state.tri_valid), nsum(state.edge_valid), cov,
+        *track_counts.unbind(0),
+        costs.get("nltgv2_total_smoothness_cost", zero),
+        costs.get("nltgv2_avg_smoothness_cost", zero),
+        costs.get("nltgv2_total_data_cost", zero),
+        costs.get("nltgv2_avg_data_cost", zero),
+        total_photo, total_photo / n_photo,
+        *gt_block, health])
+    new_state = state._replace(vtx_x=vtx_x, vtx_w=vtx_w, edge_q=edge_q,
+                               last_idmap=idmap, last_planes=planes,
+                               cell_err=cell_err)
+    idepth_out = (idepth_map if has_gt
+                  else torch.zeros((0,), dtype=f32, device=dev))
+    return new_state, idepth_out, stats_vec
+
+
+def _sanitize_state(state: EngineState) -> EngineState:
+    """Divergence recovery: kill feature lanes / graph vertices /
+    keyframes whose numeric state went non-finite and restore safe
+    defaults in their slots."""
+    f = state.feat
+    ffin = (torch.isfinite(f.mu) & torch.isfinite(f.var)
+            & torch.isfinite(f.uv_ref).all(-1))
+    feat = f._replace(valid=f.valid & ffin,
+                      mu=torch.where(ffin, f.mu, torch.full_like(f.mu, 0.5)),
+                      var=torch.where(ffin, f.var,
+                                      torch.full_like(f.var, 0.25)))
+    zfin = torch.isfinite(state.vtx_z)
+    vtx_z = torch.where(zfin, state.vtx_z, torch.full_like(state.vtx_z, 0.5))
+    vfin = torch.isfinite(state.vtx_x)
+    kffin = (torch.isfinite(state.kf_q).all(-1)
+             & torch.isfinite(state.kf_t).all(-1))
+    ident_q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float32,
+                           device=state.kf_q.device)
+
+    def fin0(x):
+        return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+
+    return state._replace(
+        feat=feat,
+        vtx_x=torch.where(vfin, state.vtx_x, vtx_z),
+        vtx_z=vtx_z,
+        vtx_w=fin0(state.vtx_w),
+        edge_q=fin0(state.edge_q),
+        vtx_in_graph=state.vtx_in_graph & vfin & zfin & ffin,
+        vtx_uv=fin0(state.vtx_uv),
+        kf_valid=state.kf_valid & kffin,
+        kf_q=torch.where(kffin[:, None], state.kf_q, ident_q),
+        kf_t=torch.where(kffin[:, None], state.kf_t,
+                         torch.zeros_like(state.kf_t)),
+        prev_q=torch.where(torch.isfinite(state.prev_q).all(), state.prev_q,
+                           ident_q),
+        prev_t=torch.where(torch.isfinite(state.prev_t).all(),
+                           state.prev_t, torch.zeros_like(state.prev_t)),
+        cell_err=torch.nan_to_num(state.cell_err),
+    )
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _frame_input_ok(pose, gray) -> bool:
+    """Host-side input gate: garbage poses/images are rejected before they
+    reach the device (reference: tf lookup failures and bad frames drop
+    the frame, tracked_image_stream.cc:182-185)."""
+    q = _host(pose.q).astype(np.float64)
+    t = _host(pose.t).astype(np.float64)
+    if not (np.all(np.isfinite(q)) and np.all(np.isfinite(t))):
+        return False
+    if abs(float(q @ q) - 1.0) > 0.1:
+        return False
+    if isinstance(gray, torch.Tensor):
+        if gray.is_floating_point() and not bool(torch.isfinite(gray).all()):
+            return False
+    else:
+        g = np.asarray(gray)
+        if g.dtype.kind == "f" and not np.all(np.isfinite(g)):
+            return False
+    return True
+
+
+class Flame:
+    """Host orchestrator mirroring the reference flame::Flame surface."""
+
+    def __init__(self, width: int, height: int, K=None, Kinv=None,
+                 params: Optional[FlameParams] = None,
+                 cam: Optional[Pinhole] = None, device=None):
+        if cam is None:
+            if K is None:
+                raise ValueError("provide K or cam")
+            cam = Pinhole.from_K(np.asarray(K), width, height)
+        self.cam = cam
+        self.device = resolve_device(device)
+        self.params = (params or FlameParams()).resolved(self.device)
+        self.state = init_state(self.params, cam, self.device)
+        self.stats_ = StatsTracker()
+        self._num_poseframes = 0
+        self._frame_count = 0
+        self._kf_slot = 0
+        # Max frame id processed so far: the watermark recorded with each
+        # triangulation (EngineState.topo_frame_id).
+        self._max_frame_id = 0
+        # Watermark of the last installed topology: installs never go
+        # backwards (see _install_topology).
+        self._installed_topo_wm = -1
+        self._topo_installs = 0
+        self._tri_superseded = 0
+        self._dev_status = None
+        self._dev_stats = None
+        self._host_status = None
+        self._host_idepth = None
+        self._host_idepth_frame = -1
+        self._needs_recovery = False
+        self.num_failed_frames = 0
+
+    # -- state carried across --------------------------------------------
+    def load_state(self, state: Mapping, host: Optional[Mapping] = None):
+        """Replace the engine state with one given as a flat {name: array}
+        mapping (`state_to_numpy` layout; a JAX engine's state converts
+        the same way). `host` optionally restores the host counters:
+        num_poseframes, frame_count, kf_slot, max_frame_id,
+        installed_topo_wm."""
+        self.state = state_from_numpy(state, self.device, like=self.state)
+        for k, v in (host or {}).items():
+            if k not in ("num_poseframes", "frame_count", "kf_slot",
+                         "max_frame_id", "installed_topo_wm"):
+                raise KeyError(f"unknown host counter {k!r}")
+            setattr(self, f"_{k}", int(v))
+        self._host_idepth_frame = -1
+
+    # -- main entry ------------------------------------------------------
+    def update(self, time: float, img_id: int, pose, img_gray,
+               is_poseframe: bool, gt_depth=None) -> bool:
+        """Process one posed grayscale frame. Returns False on failure
+        (reference semantics: frame skipped, engine continues).
+
+        `pose` is an SE3 (camera-to-world) of host or device tensors;
+        `img_gray` an [H, W] numpy array or tensor, truncated to uint8 as
+        the JAX package's default path does. `gt_depth` [H, W] (meters, 0
+        where invalid) folds the GT confusion matrix into the stats."""
+        if self._fail_or_recover(pose, img_gray):
+            return False
+        s = self.stats_
+        s.tick("update")
+        s.set_timing("update_locking", 0.0)
+        book = (self._num_poseframes, self._kf_slot)
+        try:
+            dev = self.device
+            is_pf = bool(is_poseframe or self._num_poseframes == 0)
+            kf_slot = 0
+            if is_pf:
+                kf_slot = self._kf_slot
+                self._num_poseframes += 1
+                self._kf_slot = ((self._kf_slot + 1)
+                                 % self.params.engine.max_keyframes)
+            if isinstance(img_gray, torch.Tensor):
+                g = img_gray.to(dev)
+                if g.dtype != torch.uint8:
+                    g = torch.clamp(g, 0, 255).to(torch.uint8)
+            else:
+                g = np.asarray(img_gray)
+                if g.dtype != np.uint8:
+                    g = np.clip(g, 0, 255).astype(np.uint8)
+                g = torch.from_numpy(np.ascontiguousarray(g)).to(dev)
+            cur_q = torch.as_tensor(_host(pose.q).astype(np.float32),
+                                    device=dev)
+            cur_t = torch.as_tensor(_host(pose.t).astype(np.float32),
+                                    device=dev)
+            frame_id = int(np.float32(img_id))
+            self._max_frame_id = max(self._max_frame_id, int(img_id))
+            has_gt = gt_depth is not None
+            gt = None
+            if has_gt:
+                gt = (gt_depth if isinstance(gt_depth, torch.Tensor)
+                      else torch.from_numpy(np.asarray(gt_depth, np.float32)))
+                gt = gt.to(dev, torch.float32)
+            t0 = time_mod.perf_counter()
+            with record_function("flame.pyramid"):
+                img_pyr = build_pyramid(g.to(torch.float32), NUM_LEVELS)
+            with record_function("flame.track"):
+                (self.state, status, _, counts_vec,
+                 _) = _track_step(self.state, img_pyr, cur_q, cur_t,
+                                     frame_id, kf_slot, is_pf,
+                                     cam=self.cam, params=self.params)
+            with record_function("flame.smooth"):
+                self.state, _, stats_vec = _smooth_step(
+                    self.state, img_pyr, cur_q, cur_t, counts_vec, gt,
+                    cam=self.cam, params=self.params, has_gt=has_gt)
+            s.set_timing("dispatch", (time_mod.perf_counter() - t0) * 1e3)
+            self._dev_status = status
+            self._dev_stats = stats_vec
+            self._host_status = None
+            self._frame_count += 1
+            if is_pf:
+                # The new topology serves the next frame.
+                with s.scope("triangulate"), \
+                        record_function("flame.triangulate"):
+                    self._retriangulate()
+            return True
+        except FloatingPointError:
+            self._num_poseframes, self._kf_slot = book
+            return False
+        finally:
+            s.tock("update")
+
+    def _fail_or_recover(self, pose=None, img_gray=None) -> bool:
+        """Failure gate: True if the frame must fail — a previously read
+        health word flagged divergence (state is sanitized, engine
+        continues), or the inputs are garbage."""
+        if self._needs_recovery:
+            self.state = _sanitize_state(self.state)
+            self._needs_recovery = False
+            self.num_failed_frames += 1
+            return True
+        if pose is not None and not _frame_input_ok(pose, img_gray):
+            self.num_failed_frames += 1
+            return True
+        return False
+
+    def _check_health(self, rec: dict) -> None:
+        if rec.get("health", 1.0) < 0.5:
+            self._needs_recovery = True
+
+    def flush_stats(self) -> dict:
+        """Read the packed per-frame stats vector (one small device-to-host
+        copy) into the StatsTracker. Returns {key: value}."""
+        if self._dev_stats is None:
+            return {}
+        with record_function("flame.flush_stats"):
+            vals = self._dev_stats.detach().cpu().numpy()
+        rec = dict(zip(DEVICE_STATS_KEYS, (float(v) for v in vals)))
+        for k, v in rec.items():
+            self.stats_.set(k, v)
+        self._check_health(rec)
+        return rec
+
+    # -- host triangulation (poseframe rate) -----------------------------
+    def _retriangulate(self):
+        N = self.params.engine.max_features
+        buf = torch.cat([self.state.vtx_uv.reshape(-1),
+                         self.state.vtx_in_graph.to(torch.float32)]
+                        ).cpu().numpy()
+        uv = buf[:2 * N].reshape(N, 2)
+        self._apply_topology(uv, buf[2 * N:] > 0.5, self._max_frame_id)
+
+    def _build_topology_host(self, uv: np.ndarray, eligible: np.ndarray,
+                             watermark: int = NO_WATERMARK) -> dict:
+        """Delaunay + incidence lists on the host. `watermark`: max frame
+        id of the vertex state this triangulation was built from."""
+        idx = np.flatnonzero(eligible)
+        eng = self.params.engine
+        N, E, T = eng.max_features, eng.max_edges, eng.max_triangles
+        tris_pad = np.zeros((T, 3), np.int32)
+        tv = np.zeros(T, bool)
+        edges_pad = np.zeros((E, 2), np.int32)
+        ev = np.zeros(E, bool)
+        if len(idx) >= 3:
+            tris_local = triangulate(uv[idx])
+            edges_local = edges_from_triangles(tris_local)
+            tris_g = idx[tris_local][:T]
+            edges_g = idx[edges_local][:E]
+            # Sort triangles by ymin so raster block culling is effective.
+            if len(tris_g):
+                ymin = uv[tris_g, 1].min(axis=1)
+                tris_g = tris_g[np.argsort(ymin, kind="stable")]
+            tris_pad[:len(tris_g)] = tris_g
+            tv[:len(tris_g)] = True
+            edges_pad[:len(edges_g)] = edges_g
+            ev[:len(edges_g)] = True
+        inc_e, inc_s, keep = reg_ops.build_incidence(
+            edges_pad, ev, N, eng.max_vertex_degree)
+        ev &= keep
+        return {"tris": tris_pad, "tri_valid": tv, "edges": edges_pad,
+                "edge_valid": ev, "inc_edges": inc_e, "inc_sign": inc_s,
+                "topo_frame_id": np.int32(watermark)}
+
+    def _install_topology(self, topo: dict, *, wm=None):
+        """Swap a host-built topology into the engine state (duals reset:
+        the dual space changes with the edge set). Installs are monotonic
+        in `wm`: a topology older than the installed one is skipped.
+        wm=None installs unconditionally and leaves the guard untouched."""
+        if wm is not None:
+            if wm < self._installed_topo_wm:
+                self._tri_superseded += 1
+                return
+            self._installed_topo_wm = wm
+        dev = self.device
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        self.state = self.state._replace(
+            tris=up(topo["tris"]), tri_valid=up(topo["tri_valid"]),
+            edges=up(topo["edges"]), edge_valid=up(topo["edge_valid"]),
+            inc_edges=up(topo["inc_edges"]), inc_sign=up(topo["inc_sign"]),
+            topo_frame_id=torch.tensor(int(topo["topo_frame_id"]),
+                                       dtype=torch.int32, device=dev),
+            edge_q=torch.zeros_like(self.state.edge_q))
+        self._topo_installs += 1
+
+    def _apply_topology(self, uv: np.ndarray, eligible: np.ndarray,
+                        watermark: int = NO_WATERMARK):
+        # The NO_WATERMARK sentinel means "no freshness gating"; it must
+        # not poison the monotonic guard.
+        self._install_topology(
+            self._build_topology_host(uv, eligible, watermark),
+            wm=None if watermark >= NO_WATERMARK else watermark)
+
+    # -- getters ---------------------------------------------------------
+    def _tri_fresh(self):
+        """Stale-topology gate for published products (the per-frame
+        raster's rule)."""
+        st = self.state
+        v_same = st.feat.frame_id <= st.topo_frame_id
+        return st.tri_valid & v_same[st.tris.long()].all(-1)
+
+    def get_inverse_depth_map(self) -> np.ndarray:
+        """Dense idepth map (NaN where uncovered), rasterized from the
+        current engine state and cached per frame."""
+        if self._host_idepth_frame != self._frame_count:
+            st = self.state
+            eng = self.params.engine
+            m, _ = raster_ops.rasterize_idepth(
+                st.vtx_uv, st.vtx_x, st.tris, self._tri_fresh(),
+                height=self.cam.height, width=self.cam.width,
+                use_kernel=bool(eng.use_pallas_raster),
+                kernel=eng.pallas_raster_kernel)
+            self._host_idepth = m.cpu().numpy()
+            self._host_idepth_frame = self._frame_count
+        return self._host_idepth
+
+    @property
+    def last_status(self) -> Optional[np.ndarray]:
+        """Per-feature epipolar status codes of the last frame."""
+        if self._host_status is None and self._dev_status is not None:
+            self._host_status = self._dev_status.cpu().numpy()
+        return self._host_status
+
+    def stats(self) -> StatsTracker:
+        return self.stats_
+
+    @property
+    def num_poseframes(self) -> int:
+        return self._num_poseframes
+

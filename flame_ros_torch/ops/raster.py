@@ -1,0 +1,165 @@
+"""Mesh rasterization: triangle-id buffers, affine idepth planes, dense
+inverse-depth maps.
+
+Counterpart of `flame_ros_tpu/ops/raster.py` (the per-frame raster
+products; normals and display filters are not ported yet). The Delaunay
+graph's per-vertex smoothed inverse depth defines an affine idepth
+function over each triangle, so the dense map is an id-buffer
+rasterization followed by one affine evaluation. Invalid pixels are NaN
+(reference getDepthConfusionMatrix keys on isnan, utils.cc:326-368).
+
+`rasterize_tri_ids` is the plain formulation (the CPU path and the
+oracle). `rasterize_ids(..., use_kernel=True)` dispatches to the
+hand-written kernels of `ops/raster_cuda.py`.
+"""
+from __future__ import annotations
+
+import torch
+
+from flame_ros_torch.ops import raster_cuda
+
+EPS = -1e-3
+
+
+def triangle_planes(vtx_pos, vtx_x, tris, tri_valid):
+    """Affine idepth coefficients per triangle.
+
+    Solves [1 u v] @ g = x for the 3 corners. Returns (g [T, 3] with
+    idepth(u, v) = g0 + g1*u + g2*v, valid [T] — degenerate triangles are
+    invalidated)."""
+    t = tris.long()
+    a = vtx_pos[t[:, 0]]
+    b = vtx_pos[t[:, 1]]
+    c = vtx_pos[t[:, 2]]
+    xa, xb, xc = vtx_x[t[:, 0]], vtx_x[t[:, 1]], vtx_x[t[:, 2]]
+    d = ((b[:, 0] - a[:, 0]) * (c[:, 1] - a[:, 1])
+         - (b[:, 1] - a[:, 1]) * (c[:, 0] - a[:, 0]))
+    ok = torch.abs(d) > 1e-6
+    dd = torch.where(ok, d, torch.ones_like(d))
+    g1 = ((xb - xa) * (c[:, 1] - a[:, 1])
+          - (xc - xa) * (b[:, 1] - a[:, 1])) / dd
+    g2 = ((xc - xa) * (b[:, 0] - a[:, 0])
+          - (xb - xa) * (c[:, 0] - a[:, 0])) / dd
+    g0 = xa - g1 * a[:, 0] - g2 * a[:, 1]
+    return torch.stack([g0, g1, g2], -1), tri_valid & ok
+
+
+def rasterize_tri_ids(vtx_pos, tris, tri_valid, *, height: int, width: int,
+                      row_tile: int = 8, tri_block: int = 256):
+    """Triangle-id buffer [H, W] (int32, -1 where uncovered): the plain
+    formulation of raster.py:50-126. For each tile of `row_tile` rows,
+    only the triangle blocks whose valid y-interval overlaps the tile are
+    tested; the lowest id of a triangle whose three CCW edge functions
+    are >= -1e-3 wins. Runs on any device (the block culling reads the
+    block bounds on the host)."""
+    dev = vtx_pos.device
+    T = tris.shape[0]
+    B = min(tri_block, T)
+    if T % B:
+        B = T
+    n_blocks = T // B
+    t = tris.long()
+    a, b, c = vtx_pos[t[:, 0]], vtx_pos[t[:, 1]], vtx_pos[t[:, 2]]
+    C = torch.cat([raster_cuda.edge_coeffs(a, b),
+                   raster_cuda.edge_coeffs(b, c),
+                   raster_cuda.edge_coeffs(c, a)], 0)       # [9, T]
+    ys = torch.stack([a[:, 1], b[:, 1], c[:, 1]], -1)
+    inf = float("inf")
+    blk_ymin = torch.where(tri_valid, ys.min(-1).values, inf).reshape(
+        n_blocks, B).min(-1).values.tolist()
+    blk_ymax = torch.where(tri_valid, ys.max(-1).values, -inf).reshape(
+        n_blocks, B).max(-1).values.tolist()
+    n_tiles = height // row_tile
+    px_tile = row_tile * width
+    ux = torch.arange(width, dtype=torch.float32, device=dev).repeat(
+        row_tile)[:, None]
+    uy0 = torch.arange(row_tile, dtype=torch.float32,
+                       device=dev).repeat_interleave(width)[:, None]
+    big = T + 1
+    out = torch.full((n_tiles, px_tile), -1, dtype=torch.int32, device=dev)
+    for i in range(n_tiles):
+        y_lo = float(i * row_tile)
+        blocks = [k for k in range(n_blocks)
+                  if blk_ymax[k] >= y_lo and blk_ymin[k] < y_lo + row_tile]
+        if not blocks:
+            continue
+        cols = torch.cat([torch.arange(k * B, (k + 1) * B, device=dev)
+                          for k in blocks])
+        uy = uy0 + y_lo
+        Cb = C[:, cols]
+        inside = tri_valid[cols][None, :]
+        for e in range(3):
+            E = (ux * Cb[3 * e:3 * e + 1] + uy * Cb[3 * e + 1:3 * e + 2]) \
+                + Cb[3 * e + 2:3 * e + 3]
+            inside = inside & (E >= EPS)
+        ids = cols.to(torch.int32)[None, :]
+        best = torch.where(inside, ids, big).min(-1).values
+        out[i] = torch.where(best < big, best, -1)
+    return out.reshape(height, width)
+
+
+def rasterize_ids(vtx_pos, vtx_x, tris, tri_valid, *, height: int,
+                  width: int, use_kernel: bool = False,
+                  kernel: str = "v2"):
+    """Triangle-id buffer [H, W] + affine idepth planes [T, 3] — the
+    per-frame raster products; the dense idepth evaluation is deferred
+    (idepth_from_ids / sample_idepth_at).
+
+    use_kernel=True runs the hand-written raster (`kernel` "v4", with
+    its in-graph v2 fallback, or "v2"): the CUDA kernels on CUDA tensors,
+    their plain versions on CPU tensors."""
+    planes, pvalid = triangle_planes(vtx_pos, vtx_x, tris, tri_valid)
+    if use_kernel and kernel == "v4":
+        idmap = raster_cuda.rasterize_tri_ids_v4(
+            vtx_pos, tris, pvalid, height=height, width=width)
+    elif use_kernel:
+        idmap = raster_cuda.rasterize_tri_ids_v2(
+            vtx_pos, tris, pvalid, height=height, width=width)
+    else:
+        idmap = rasterize_tri_ids(vtx_pos, tris, pvalid, height=height,
+                                  width=width)
+    return idmap, planes
+
+
+def rasterize_idepth(vtx_pos, vtx_x, tris, tri_valid, *, height: int,
+                     width: int, use_kernel: bool = False,
+                     kernel: str = "v2"):
+    """Dense inverse-depth map [H, W] (NaN outside the mesh) + id buffer."""
+    idmap, planes = rasterize_ids(
+        vtx_pos, vtx_x, tris, tri_valid, height=height, width=width,
+        use_kernel=use_kernel, kernel=kernel)
+    return idepth_from_ids(idmap, planes), idmap
+
+
+def idepth_from_ids(idmap, planes):
+    """Dense idepth map [H, W] (NaN outside) from a triangle-id buffer +
+    per-triangle affine planes."""
+    height, width = idmap.shape
+    covered = idmap >= 0
+    g = planes[idmap.clamp(min=0).long()]
+    u = torch.arange(width, dtype=torch.float32,
+                     device=idmap.device)[None, :].expand(height, width)
+    v = torch.arange(height, dtype=torch.float32,
+                     device=idmap.device)[:, None].expand(height, width)
+    idepth = g[..., 0] + g[..., 1] * u + g[..., 2] * v
+    return torch.where(covered, idepth, torch.full_like(idepth, float("nan")))
+
+
+def sample_idepth_at(idmap, planes, uv):
+    """Sparse idepth at pixel coords uv [..., 2] from (idmap, planes):
+    nearest-pixel triangle id, affine plane evaluated AT uv. Returns
+    (xi [...], ok [...])."""
+    height, width = idmap.shape
+    ui = torch.round(uv[..., 0]).to(torch.int32).clamp(0, width - 1).long()
+    vi = torch.round(uv[..., 1]).to(torch.int32).clamp(0, height - 1).long()
+    ids = idmap[vi, ui]
+    ok = ids >= 0
+    g = planes[ids.clamp(min=0).long()]
+    xi = g[..., 0] + g[..., 1] * uv[..., 0] + g[..., 2] * uv[..., 1]
+    return torch.where(ok, xi, torch.full_like(xi, float("nan"))), ok
+
+
+def coverage(idepth_map):
+    """Fraction of pixels with a valid (non-NaN) idepth (reference
+    FlameStats.coverage)."""
+    return torch.mean(torch.isfinite(idepth_map).to(torch.float32))

@@ -1,0 +1,440 @@
+"""Hand-written CUDA triangle-id rasterizers (v4 and v2) and their plain
+PyTorch versions.
+
+Counterpart of `flame_ros_tpu/ops/raster_pallas.py`:
+
+- `rasterize_tri_ids_v4` replaces `rasterize_tri_ids_pallas_v4`
+  (raster_pallas.py:350-482): device sort by (class, ymin), exact
+  per-tile candidate ranges, and an in-graph fallback to v2 when a
+  frame's geometry exceeds the candidate budgets;
+- `rasterize_tri_ids_v2` replaces `rasterize_tri_ids_pallas`
+  (raster_pallas.py:27-147): per-tile contiguous triangle-block ranges.
+
+The kernels are in `csrc/raster.cu` (its header note says what bounds
+them on the card and how the design answers it). They are compiled with
+nvcc at first use into `csrc/build/` and loaded with ctypes; the build is
+redone when the source's content hash changes.
+
+Each wrapper runs its plain version (`*_ref`) when given CPU tensors and
+launches its kernel when given CUDA tensors; a CUDA tensor never falls
+back to the plain version. The plain versions keep the kernels' sort,
+range logic and edge-function evaluation order, so the id buffers agree
+bit for bit.
+
+Launch counts: each wrapper has a `launches` integer that counts its
+kernel launches. The kernels also count, in a small device tensor
+(`work_counters`), the launches that did the work — the v4 -> v2
+fallback launches both and exactly one of them works.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import torch
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+_SRC = os.path.join(_CSRC, "raster.cu")
+_BUILD = os.path.join(_CSRC, "build")
+_SO = os.path.join(_BUILD, "libflame_raster.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+OFF = 1e7          # class offset of the v4 sort key
+EPS = -1e-3        # inside-test tolerance of the edge functions
+
+_lock = threading.Lock()
+_lib = None
+_work = {}
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+
+def _src_hash() -> str:
+    with open(_SRC, "rb") as f:
+        return hashlib.blake2b(f.read(), digest_size=16).hexdigest()
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    return "nvcc"
+
+
+def build(force: bool = False) -> str:
+    """Compile csrc/raster.cu into csrc/build/ unless a library built from
+    the current source is already there. Returns the library path."""
+    h = _src_hash()
+    stamp = _SO + ".srchash"
+    if not force and os.path.exists(_SO) and os.path.exists(stamp):
+        with open(stamp) as f:
+            if f.read().strip() == h:
+                return _SO
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, _SO)
+    with open(stamp, "w") as f:
+        f.write(h)
+    return _SO
+
+
+def _get_lib():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.raster_v4_launch.restype = ci
+            lib.raster_v4_launch.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci,
+                                             ci, ci, ci, vp, vp]
+            lib.raster_v2_launch.restype = ci
+            lib.raster_v2_launch.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci,
+                                             ci, vp, vp]
+            _lib = lib
+        return _lib
+
+
+def work_counters(device) -> torch.Tensor:
+    """Device int32 [2]: launches of (v4, v2) that did the work."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _work:
+        _work[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _work[dev]
+
+
+def reset_counters() -> None:
+    rasterize_tri_ids_v4.launches = 0
+    rasterize_tri_ids_v2.launches = 0
+    for w in _work.values():
+        w.zero_()
+
+
+# ---------------------------------------------------------------------------
+# Shared setup (torch ops; no host sync)
+# ---------------------------------------------------------------------------
+
+def edge_coeffs(p0, p1):
+    """[3, T] (a, b, c) of E(x, y) = a x + b y + c for edge p0 -> p1."""
+    dy = p1[:, 1] - p0[:, 1]
+    dx = p1[:, 0] - p0[:, 0]
+    return torch.stack([-dy, dx, dy * p0[:, 0] - dx * p0[:, 1]], 0)
+
+
+def _corners(vtx_pos, tris):
+    t = tris.long()
+    return vtx_pos[t[:, 0]], vtx_pos[t[:, 1]], vtx_pos[t[:, 2]]
+
+
+def _check(vtx_pos, tris, tri_valid, height, width, row_tile):
+    if vtx_pos.dtype != torch.float32 or vtx_pos.dim() != 2 \
+            or vtx_pos.shape[1] != 2:
+        raise ValueError(f"vtx_pos must be float32 [N, 2], got "
+                         f"{vtx_pos.dtype} {tuple(vtx_pos.shape)}")
+    if tris.dtype not in (torch.int32, torch.int64) or tris.dim() != 2 \
+            or tris.shape[1] != 3:
+        raise ValueError(f"tris must be int [T, 3], got {tris.dtype} "
+                         f"{tuple(tris.shape)}")
+    if tri_valid.dtype != torch.bool \
+            or tuple(tri_valid.shape) != (tris.shape[0],):
+        raise ValueError(f"tri_valid must be bool [T], got "
+                         f"{tri_valid.dtype} {tuple(tri_valid.shape)}")
+    if not (vtx_pos.device == tris.device == tri_valid.device):
+        raise ValueError("vtx_pos, tris and tri_valid must share a device")
+    if height < row_tile or height % row_tile:
+        raise ValueError(f"height {height} must be a positive multiple of "
+                         f"row_tile {row_tile}")
+    if width <= 1:
+        raise ValueError(f"width {width} too small")
+
+
+def v4_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
+             cand_s: int, cand_l: int, long_thresh: float):
+    """The v4 wrapper's device-side preparation (raster_pallas.py:397-438).
+
+    Returns (M [12, T] sorted slab, lo_pos [n_tiles] int32, hi_pos
+    [n_tiles] int32, counts [2] int32 = (n_short, n_long), fits [] bool)."""
+    T = tris.shape[0]
+    dev = vtx_pos.device
+    a, b, c = _corners(vtx_pos, tris)
+    ys = torch.stack([a[:, 1], b[:, 1], c[:, 1]], -1)
+    ymin = ys.min(-1).values
+    ymax = ys.max(-1).values
+    extent = ymax - ymin
+    klass = torch.where(tri_valid,
+                        torch.where(extent <= long_thresh, 0.0, 1.0), 2.0)
+    key = klass * OFF + torch.clamp(ymin, 0.0, OFF - 1.0)
+    perm = torch.argsort(key, stable=True)
+    key_s = key[perm]
+    M = torch.cat([
+        edge_coeffs(a, b), edge_coeffs(b, c), edge_coeffs(c, a),
+        tri_valid.to(torch.float32)[None, :],
+        torch.arange(T, dtype=torch.float32, device=dev)[None, :],
+        torch.zeros((1, T), dtype=torch.float32, device=dev),
+    ], 0)[:, perm].contiguous()
+    # OFF - 0.5 and 2*OFF - 0.5 in f32 (they round to 1e7 and 2e7).
+    thr = torch.full((2,), OFF - 0.5, dtype=torch.float32, device=dev)
+    thr[1] = 2 * OFF - 0.5
+    n_short, n_live = torch.searchsorted(key_s, thr).to(torch.int32)
+    n_long = n_live - n_short
+    n_tiles = height // row_tile
+    tile_y0 = torch.arange(n_tiles, dtype=torch.float32, device=dev) \
+        * row_tile
+    lo_pos = torch.searchsorted(
+        key_s, torch.clamp(tile_y0 - long_thresh, min=0.0)).to(torch.int32)
+    hi_pos = torch.minimum(
+        torch.searchsorted(key_s, tile_y0 + row_tile).to(torch.int32),
+        n_short)
+    fits = (torch.max(hi_pos - lo_pos) <= cand_s) & (n_long <= cand_l)
+    counts = torch.stack([n_short, n_long]).contiguous()
+    return M, lo_pos.contiguous(), hi_pos, counts, fits
+
+
+def v2_setup(vtx_pos, tris, tri_valid, *, height: int, width: int,
+             row_tile: int, tri_block: int):
+    """The v2 wrapper's device-side preparation (raster_pallas.py:78-124).
+
+    Returns (C [10, T] = 9 edge coefficients + validity in original order,
+    bounds [n_tiles, 2] int32 block ranges [lo, hi), block size B)."""
+    T = tris.shape[0]
+    dev = vtx_pos.device
+    B = min(tri_block, T)
+    if T % B:
+        B = T
+    n_blocks = T // B
+    a, b, c = _corners(vtx_pos, tris)
+    C = torch.cat([edge_coeffs(a, b), edge_coeffs(b, c), edge_coeffs(c, a),
+                   tri_valid.to(torch.float32)[None, :]], 0).contiguous()
+    ys = torch.stack([a[:, 1], b[:, 1], c[:, 1]], -1)
+    inf = float("inf")
+    y_min = torch.where(tri_valid, ys.min(-1).values, inf).reshape(
+        n_blocks, B)
+    y_max = torch.where(tri_valid, ys.max(-1).values, -inf).reshape(
+        n_blocks, B)
+    blk_ymin = y_min.min(-1).values
+    blk_ymax = y_max.max(-1).values
+    px_tile = row_tile * width
+    n_tiles = (height * width) // px_tile
+    tile_y0 = torch.arange(n_tiles, dtype=torch.float32, device=dev) \
+        * row_tile
+    tile_y1 = tile_y0 + row_tile
+    ext = blk_ymax - blk_ymin
+    span = torch.max(torch.where(torch.isfinite(ext), ext,
+                                 torch.zeros_like(ext)))
+    mono = torch.all(blk_ymin[1:] >= blk_ymin[:-1])
+    his = torch.where(mono,
+                      torch.searchsorted(blk_ymin, tile_y1, right=True),
+                      n_blocks)
+    los = torch.where(mono, torch.searchsorted(blk_ymin, tile_y0 - span),
+                      0)
+    bounds = torch.stack([los, his], -1).to(torch.int32).contiguous()
+    return C, bounds, B
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU path; the oracle for the kernels)
+# ---------------------------------------------------------------------------
+
+def _v4_eval(M, lo_pos, counts, *, T, height, width, row_tile, cand_s,
+             cand_l):
+    """Plain v4 evaluation given the setup; [H, W] int32 with -1 uncovered
+    (the kernel's arithmetic: x*a + (y*b + c), min over original ids)."""
+    dev = M.device
+    cs = min(cand_s, T)
+    cl = min(cand_l, T)
+    n_short, n_long = counts[0], counts[1]
+    n_tiles = height // row_tile
+    idx = torch.clamp(lo_pos[:, None].long()
+                      + torch.arange(cs, device=dev)[None, :], 0, T - 1)
+    G = M[:11, idx].permute(1, 0, 2)                   # [n_tiles, 11, cs]
+    lidx = torch.clamp(n_short.long() + torch.arange(cl, device=dev),
+                       0, T - 1)
+    lvalid = (torch.arange(cl, device=dev) < n_long).to(torch.float32)
+    L = M[:11, lidx].clone()
+    L[9] = L[9] * lvalid                               # [11, cl]
+    S = torch.cat([G, L[None].expand(n_tiles, 11, cl)], 2)  # [nt, 11, nc]
+    big = float(T + 1)
+    ux = torch.arange(width, dtype=torch.float32, device=dev)[None, :, None]
+    rows = []
+    for r in range(row_tile):
+        uy = (torch.arange(n_tiles, device=dev) * row_tile + r).to(
+            torch.float32)[:, None, None]              # [nt, 1, 1]
+        inside = None
+        for e in range(3):
+            a = S[:, 3 * e:3 * e + 1, :]               # [nt, 1, nc]
+            b = S[:, 3 * e + 1:3 * e + 2, :]
+            c = S[:, 3 * e + 2:3 * e + 3, :]
+            d = uy * b + c
+            E = ux * a + d                             # [nt, W, nc]
+            cond = E >= EPS
+            inside = cond if inside is None else (inside & cond)
+        inside = inside & (S[:, 9:10, :] > 0.0)
+        cand = torch.where(inside, S[:, 10:11, :], big).min(-1).values
+        rows.append(cand)                              # [nt, W]
+    out = torch.stack(rows, 1).reshape(height, width).to(torch.int32)
+    return torch.where(out > T, -1, out)
+
+
+def _v2_eval(C, bounds, B, *, T, height, width, row_tile):
+    """Plain v2 evaluation given the setup: per tile, its contiguous block
+    range [lo, hi) evaluated as (x*a + y*b) + c; the lowest id wins."""
+    dev = C.device
+    px_tile = row_tile * width
+    n_tiles = (height * width) // px_tile
+    out = torch.full((n_tiles, px_tile), -1, dtype=torch.int32, device=dev)
+    pidx = torch.arange(px_tile, device=dev)
+    for i, (lo, hi) in enumerate(bounds.tolist()):
+        t0, t1 = lo * B, min(hi * B, T)
+        if t1 <= t0:
+            continue
+        idx = pidx + i * px_tile
+        ux = (idx % width).to(torch.float32)[:, None]
+        uy = (idx // width).to(torch.float32)[:, None]
+        Ct = C[:, t0:t1]
+        inside = Ct[9:10] > 0
+        for e in range(3):
+            E = (ux * Ct[3 * e:3 * e + 1] + uy * Ct[3 * e + 1:3 * e + 2]) \
+                + Ct[3 * e + 2:3 * e + 3]
+            inside = inside & (E >= EPS)
+        ids = torch.arange(t0, t1, device=dev, dtype=torch.int32)[None, :]
+        best = torch.where(inside, ids, T + 1).min(-1).values
+        out[i] = torch.where(best < T + 1, best, -1)
+    return out.reshape(height, width)
+
+
+def rasterize_tri_ids_v2_ref(vtx_pos, tris, tri_valid, *, height: int,
+                             width: int, row_tile: int = 2,
+                             tri_block: int = 512):
+    """Plain PyTorch version of the v2 kernel."""
+    _check(vtx_pos, tris, tri_valid, height, width, row_tile)
+    C, bounds, B = v2_setup(vtx_pos, tris, tri_valid, height=height,
+                            width=width, row_tile=row_tile,
+                            tri_block=tri_block)
+    return _v2_eval(C, bounds, B, T=tris.shape[0], height=height,
+                    width=width, row_tile=row_tile)
+
+
+def rasterize_tri_ids_v4_ref(vtx_pos, tris, tri_valid, *, height: int,
+                             width: int, row_tile: int = 2,
+                             cand_s: int = 384, cand_l: int = 128,
+                             long_thresh: float = 48.0):
+    """Plain PyTorch version of the v4 kernel, with its v2 fallback."""
+    _check(vtx_pos, tris, tri_valid, height, width, row_tile)
+    T = tris.shape[0]
+    M, lo_pos, _, counts, fits = v4_setup(
+        vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
+        cand_s=cand_s, cand_l=cand_l, long_thresh=long_thresh)
+    if bool(fits):
+        return _v4_eval(M, lo_pos, counts, T=T, height=height, width=width,
+                        row_tile=row_tile, cand_s=cand_s, cand_l=cand_l)
+    return rasterize_tri_ids_v2_ref(vtx_pos, tris, tri_valid, height=height,
+                                    width=width)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _launch_v2(C, bounds, B, skip_if, out, *, T, height, width, row_tile):
+    lib = _get_lib()
+    for name, t in (("C", C), ("bounds", bounds), ("out", out)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    work = work_counters(out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = lib.raster_v2_launch(
+        C.data_ptr(), T, bounds.data_ptr(), B,
+        skip_if.data_ptr() if skip_if is not None else None,
+        out.data_ptr(), height, width, row_tile, work.data_ptr(), stream)
+    rasterize_tri_ids_v2.launches += 1
+    if err != 0:
+        raise RuntimeError(f"raster_v2 launch failed: cudaError {err}")
+
+
+def _check_cuda(vtx_pos, height, width, row_tile):
+    if row_tile * width > 1024 * 4:
+        raise ValueError(f"tile of {row_tile}x{width} pixels exceeds the "
+                         "kernel's 4096 pixels per block")
+    if vtx_pos.device.type != "cuda":
+        raise ValueError(f"expected a CUDA tensor, got {vtx_pos.device}")
+
+
+def rasterize_tri_ids_v2(vtx_pos, tris, tri_valid, *, height: int,
+                         width: int, row_tile: int = 2,
+                         tri_block: int = 512):
+    """Triangle-id buffer [H, W] int32 by the v2 kernel (block-range
+    culling). CPU tensors run the plain version."""
+    if vtx_pos.device.type == "cpu":
+        return rasterize_tri_ids_v2_ref(
+            vtx_pos, tris, tri_valid, height=height, width=width,
+            row_tile=row_tile, tri_block=tri_block)
+    _check(vtx_pos, tris, tri_valid, height, width, row_tile)
+    _check_cuda(vtx_pos, height, width, row_tile)
+    T = tris.shape[0]
+    C, bounds, B = v2_setup(vtx_pos, tris, tri_valid, height=height,
+                            width=width, row_tile=row_tile,
+                            tri_block=tri_block)
+    out = torch.empty(height * width, dtype=torch.int32,
+                      device=vtx_pos.device)
+    _launch_v2(C, bounds, B, None, out, T=T, height=height, width=width,
+               row_tile=row_tile)
+    return out.reshape(height, width)
+
+
+def rasterize_tri_ids_v4(vtx_pos, tris, tri_valid, *, height: int,
+                         width: int, row_tile: int = 2, cand_s: int = 384,
+                         cand_l: int = 128, long_thresh: float = 48.0):
+    """Triangle-id buffer [H, W] int32 by the v4 kernel, falling back to
+    the v2 kernel on the device when the geometry exceeds the candidate
+    budgets. CPU tensors run the plain version."""
+    if vtx_pos.device.type == "cpu":
+        return rasterize_tri_ids_v4_ref(
+            vtx_pos, tris, tri_valid, height=height, width=width,
+            row_tile=row_tile, cand_s=cand_s, cand_l=cand_l,
+            long_thresh=long_thresh)
+    _check(vtx_pos, tris, tri_valid, height, width, 2)
+    _check(vtx_pos, tris, tri_valid, height, width, row_tile)
+    _check_cuda(vtx_pos, height, width, row_tile)
+    T = tris.shape[0]
+    cs, cl = min(cand_s, T), min(cand_l, T)
+    M, lo_pos, _, counts, fits = v4_setup(
+        vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
+        cand_s=cand_s, cand_l=cand_l, long_thresh=long_thresh)
+    fits = fits.contiguous()
+    out = torch.empty(height * width, dtype=torch.int32,
+                      device=vtx_pos.device)
+    lib = _get_lib()
+    work = work_counters(out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = lib.raster_v4_launch(
+        M.data_ptr(), T, lo_pos.data_ptr(), counts.data_ptr(),
+        fits.data_ptr(), out.data_ptr(), height, width, row_tile, cs, cl,
+        work.data_ptr(), stream)
+    rasterize_tri_ids_v4.launches += 1
+    if err != 0:
+        raise RuntimeError(f"raster_v4 launch failed: cudaError {err}")
+    # The fallback: v2 on the original order, which does the work only
+    # where v4 did not (fits is read on the device, never on the host).
+    C, bounds, B = v2_setup(vtx_pos, tris, tri_valid, height=height,
+                            width=width, row_tile=2, tri_block=512)
+    _launch_v2(C, bounds, B, fits, out, T=T, height=height, width=width,
+               row_tile=2)
+    return out.reshape(height, width)
+
+
+rasterize_tri_ids_v4.launches = 0
+rasterize_tri_ids_v2.launches = 0

@@ -1,0 +1,108 @@
+"""Ground rules of the PyTorch port (flame_ros_torch/):
+
+- it imports nothing of JAX or of the JAX package, not even indirectly:
+  a CPU run leaves "jax" out of sys.modules (checked in a fresh
+  interpreter, since the test process itself imports JAX);
+- importing it turns TF32 off for matmul and cuDNN (the reference pins
+  geometry to full f32);
+- its entry points run on the card unless asked for the CPU, and raise
+  rather than fall back to the CPU when there is no card.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# Small shapes: one intra-op thread keeps these tests from
+# oversubscribing the CPU when the suite runs in parallel workers.
+torch.set_num_threads(1)
+
+_RUN_3_FRAMES = """
+import sys
+import flame_ros_torch
+from flame_ros_torch.config import FlameParams
+from flame_ros_torch.datasets.synthetic import make_sequence
+from flame_ros_torch.frontends.offline_runner import (run_offline,
+                                                      synthetic_frames)
+from flame_ros_torch.geometry.camera import Pinhole
+cam = Pinhole(105.0, 105.0, 63.5, 47.5, 128, 96)
+params = FlameParams.from_dict({"engine": {"max_features": 128,
+                                           "max_keyframes": 4}})
+seq = make_sequence(3, cam, device="cpu")
+res = run_offline(synthetic_frames(seq), cam, params, device="cpu")
+assert res.frames_processed == 3, res
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flame_ros_tpu"))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_cpu_run_never_imports_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-c", _RUN_3_FRAMES], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_tf32_off_after_import():
+    import flame_ros_torch  # noqa: F401
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_entry_points_refuse_cpu_fallback(monkeypatch):
+    from flame_ros_torch.datasets.synthetic import QVGA, make_sequence
+    from flame_ros_torch.frontends.offline_runner import main, run_offline
+    from flame_ros_torch.models.engine import Flame
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Flame(QVGA.width, QVGA.height, cam=QVGA)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_sequence(2, QVGA)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_offline([], QVGA, __import__(
+            "flame_ros_torch.config", fromlist=["FlameParams"]).FlameParams())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--dataset", "synthetic", "--frames", "2"])
+    # Explicit CPU works.
+    assert Flame(QVGA.width, QVGA.height, cam=QVGA,
+                 device="cpu").device.type == "cpu"
+
+
+def _sources():
+    pkg = os.path.join(REPO, "flame_ros_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_jax_imports_in_port():
+    """No file of the port, and not chip_smoke.py, has an import statement
+    naming jax, jaxlib or flame_ros_tpu."""
+    for path in sorted(_sources()):
+        rel = os.path.relpath(path, REPO)
+        with open(path) as f:
+            tree = ast.parse(f.read(), rel)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in ("jax", "jaxlib",
+                                               "flame_ros_tpu"), \
+                    f"{rel}:{node.lineno} imports {n}"

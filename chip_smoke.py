@@ -10,15 +10,26 @@ Phases, each printed as one line:
 2. kernel build: csrc/raster.cu compiled from this checkout with nvcc;
 3. kernels vs plain versions at VGA with T = 4096 triangle slots
    (Delaunay of 2048 seeded random points, and of 1300 of them for the
-   engine's density): the v4 and v2 raster kernels must equal their plain
-   PyTorch versions bit for bit on an unsorted, a y-sorted, an
-   engine-density, a long-triangle, a forced-fallback and an empty mesh;
+   engine's density): the v4, v2 and v3 raster kernels must equal their
+   plain PyTorch versions bit for bit on an unsorted, a y-sorted, an
+   engine-density, a long-triangle, a forced-fallback and an empty mesh,
+   with the device work counters showing which kernel did the work;
    kernel, plain and bound times (CUDA events, medians);
 4. the main path: `run_offline` at VGA with the default FlameParams over
    60 frames rendered on the card — health on every frame, the v4 kernel
    launched on every frame, the id buffer of several frames recomputed by
-   the plain version from the engine's own state, ms/frame and accuracy;
-5. small-input agreement: the same 96x128 frames through the card path
+   the plain version from the engine's own state (and whether v3's
+   budgets would hold there), ms/frame and accuracy;
+5. the windowed streaming path at VGA, room/strafe: (a)
+   `run_offline_windowed` with windows of 6 and synchronous
+   triangulation over the same 60 frames, held against the JAX package's
+   CPU run of that sequence; (b) 120 host frames (more than two wraps of
+   the 8-keyframe ring) streamed as windows of 6 with prefetch depth 2
+   and deferred triangulation: ms/frame, frames/s, coverage per window,
+   topology install counters, accuracy and the raster work split; the
+   per-frame path's accuracy over the same frames; and prefetched
+   windows bit for bit equal to plain `update_window` calls;
+6. small-input agreement: the same 96x128 frames through the card path
    (CUDA kernels) and the CPU path (plain versions).
 
 Any failure exits non-zero. The line before the last is the card's
@@ -41,6 +52,14 @@ OUT = os.path.join(REPO, "run_out", "chip_smoke")
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 FLOPS_PER_TEST = 12      # 3 edges x (2 multiplies + 2 adds)
+# The JAX package on the CPU over the phase-5 (a) sequence:
+#   JAX_PLATFORMS=cpu python -m flame_ros_tpu.frontends.offline_runner \
+#       --dataset synthetic --frames 60 --resolution vga --window 6
+# printed rmse 0.04661, recall 0.7433, coverage 0.7429 (PERF.md).
+JAX_WINDOWED_VGA = {"idepth_rmse": 0.04661, "recall": 0.7433,
+                    "coverage": 0.7429}
+V3_DEFAULTS = {"tri_block": 128, "s_blocks": 5, "l_blocks": 4,
+               "long_thresh": 64.0}
 
 
 def phase(name, **kv):
@@ -97,11 +116,15 @@ def make_meshes(triangulate, np, H=480, W=640, n=2048, T=4096, seed=0):
     band = sparse[(sparse[:, 1] < 215) | (sparse[:, 1] > 275)]
     empty = (np.zeros((n, 2), np.float32), np.zeros((T, 3), np.int32),
              np.zeros(T, bool))
+    # Per case, the keyword arguments of each kernel: the forced-fallback
+    # case gives v4 and v3 budgets too small for the mesh (v3's as in
+    # tests/test_raster_pallas.py:97-107).
     return {"unsorted": (base, {}), "ysorted": (ysort(base), {}),
             "engine_density": (ysort(pad(sparse, triangulate(sparse))), {}),
             "long_triangles": (pad(band, triangulate(band)), {}),
-            "forced_fallback": (base, {"cand_s": 128,
-                                       "long_thresh": 1000.0}),
+            "forced_fallback": (base, {
+                "v4": {"cand_s": 128, "long_thresh": 1000.0},
+                "v3": {"s_blocks": 1, "l_blocks": 1, "tri_block": 32}}),
             "empty": (empty, {})}
 
 
@@ -111,10 +134,21 @@ def bare_launch(rc, name, args, H, W, kw):
     import torch
     lib = rc._get_lib()
     out = torch.empty(H * W, dtype=torch.int32, device=args[0].device)
-    work = torch.zeros(2, dtype=torch.int32, device=args[0].device)
+    work = torch.zeros(len(rc.WORK_SLOTS), dtype=torch.int32,
+                       device=args[0].device)
     stream = torch.cuda.current_stream().cuda_stream
     T = args[1].shape[0]
-    if name == "v4":
+    if name == "v3":
+        C, lo_blk, nblk_s, long2, fits, (B, _, sb, lb) = rc.v3_setup(
+            *args, height=H, row_tile=2, **{**V3_DEFAULTS, **kw})
+        keep = (C, lo_blk, nblk_s, long2, fits, out, work)
+
+        def fn():
+            lib.raster_v3_launch(C.data_ptr(), T, lo_blk.data_ptr(),
+                                 nblk_s.data_ptr(), long2.data_ptr(),
+                                 fits.data_ptr(), out.data_ptr(), H, W, 2,
+                                 B, sb, lb, work.data_ptr(), stream)
+    elif name == "v4":
         cs, cl = min(kw.get("cand_s", 384), T), min(128, T)
         M, lo_pos, _, counts, fits = rc.v4_setup(
             *args, height=H, row_tile=2, cand_s=kw.get("cand_s", 384),
@@ -157,8 +191,10 @@ def drive_main_path(engine, seq, out_dir):
     """run_offline over `seq` with `engine`. Times each frame on the host
     clock from its start to the end of its stats read (a device sync);
     after each non-poseframe, recomputes that frame's id buffer with the
-    plain v4 version from the engine's own state and checks equality.
-    Returns (RunResult, ms per frame, checked frame ids, telemetry)."""
+    plain v4 version from the engine's own state and checks equality,
+    and records whether v3's budgets would hold on that frame's mesh.
+    Returns (RunResult, ms per frame, checked frame ids, v3 fits per
+    checked frame, telemetry)."""
     import numpy as np
     import torch
     from flame_ros_torch.frontends.offline_runner import (run_offline,
@@ -168,7 +204,7 @@ def drive_main_path(engine, seq, out_dir):
     from flame_ros_torch.ops import raster_cuda as rc
     cam = engine.cam
     pf_every = engine.params.input.poseframe_subsample_factor
-    starts, ends, checked = [], [], []
+    starts, ends, checked, v3_fits = [], [], [], []
 
     def frames():
         for i, f in enumerate(synthetic_frames(seq)):
@@ -189,6 +225,10 @@ def drive_main_path(engine, seq, out_dir):
                         f"frame {i - 1}: main-path id buffer differs from "
                         "the plain version")
                 checked.append(i - 1)
+                *_, fits, _ = rc.v3_setup(
+                    st.vtx_uv, st.tris, pvalid, height=cam.height,
+                    row_tile=2, **V3_DEFAULTS)
+                v3_fits.append(bool(fits))
             starts.append(time.perf_counter())
             yield f
         ends.append(time.perf_counter())
@@ -198,7 +238,41 @@ def drive_main_path(engine, seq, out_dir):
     with open(os.path.join(out_dir, "telemetry.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     ms = (np.asarray(ends) - np.asarray(starts)) * 1e3
-    return res, ms, checked, recs
+    return res, ms, checked, v3_fits, recs
+
+
+def launch_counts(rc, dev):
+    """Wrapper launch counts and device work counters, by kernel."""
+    return ({"v4": rc.rasterize_tri_ids_v4.launches,
+             "v2": rc.rasterize_tri_ids_v2.launches,
+             "v3": rc.rasterize_tri_ids_v3.launches},
+            dict(zip(rc.WORK_SLOTS, rc.work_counters(dev).tolist())))
+
+
+def stream_windows(engine, frames, gts, win, depth=2):
+    """The streaming loop of bench.py's run_sustained: windows of `win`
+    host frames, each prefetched `depth` windows ahead (pinned pack and
+    copy-stream upload), dispatched with update_window(prefetched=...),
+    and its stats read back (flush_window_stats, one device-to-host copy
+    that waits for the window). Returns per window the host seconds from
+    the prefetch that starts its iteration to its stats read, and its
+    per-frame stats rows."""
+    n_win = len(frames) // win
+
+    def prefetch(w):
+        s = slice(w * win, (w + 1) * win)
+        return engine.prefetch_window(frames[s], gts[s])
+
+    pending = [prefetch(w) for w in range(min(depth, n_win))]
+    secs, rows = [], []
+    for w in range(n_win):
+        t0 = time.perf_counter()
+        if w + depth < n_win:
+            pending.append(prefetch(w + depth))
+        assert engine.update_window(prefetched=pending.pop(0))
+        rows.append(engine.flush_window_stats())
+        secs.append(time.perf_counter() - t0)
+    return secs, rows
 
 
 def main():
@@ -220,11 +294,13 @@ def main():
     import numpy as np
     from flame_ros_torch.config import FlameParams
     from flame_ros_torch.datasets.synthetic import VGA, make_sequence
-    from flame_ros_torch.frontends.offline_runner import (run_offline,
-                                                          synthetic_frames)
+    from flame_ros_torch.eval.metrics import TruthStats
+    from flame_ros_torch.frontends.offline_runner import (
+        run_offline, run_offline_windowed, synthetic_frames)
     from flame_ros_torch.geometry.camera import Pinhole
+    from flame_ros_torch.geometry.se3 import SE3
     from flame_ros_torch.graph.delaunay import native_available, triangulate
-    from flame_ros_torch.models.engine import Flame
+    from flame_ros_torch.models.engine import Flame, state_to_numpy
     from flame_ros_torch.ops import raster_cuda as rc
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda")
@@ -256,18 +332,33 @@ def main():
     # 3. kernels vs plain versions -------------------------------------
     H, W = VGA.height, VGA.width
     meshes = make_meshes(triangulate, np, H, W)
-    rows = {"v4": {}, "v2": {}}
-    max_err = {"v4": 0, "v2": 0}
-    for case, ((pos, tp, tv), kw) in meshes.items():
+    names = ("v4", "v2", "v3")
+    funcs = {"v4": (rc.rasterize_tri_ids_v4, rc.rasterize_tri_ids_v4_ref),
+             "v2": (rc.rasterize_tri_ids_v2, rc.rasterize_tri_ids_v2_ref),
+             "v3": (rc.rasterize_tri_ids_v3, rc.rasterize_tri_ids_v3_ref)}
+    rows = {n: {} for n in names}
+    max_err = {n: 0 for n in names}
+    for case, ((pos, tp, tv), kws) in meshes.items():
         args = [torch.from_numpy(a).to(dev) for a in (pos, tp, tv)]
-        *_, fits = rc.v4_setup(*args, height=H, row_tile=2,
-                               cand_s=kw.get("cand_s", 384), cand_l=128,
-                               long_thresh=kw.get("long_thresh", 48.0))
-        for name, kern, ref, kk in (
-                ("v4", rc.rasterize_tri_ids_v4, rc.rasterize_tri_ids_v4_ref,
-                 kw),
-                ("v2", rc.rasterize_tri_ids_v2, rc.rasterize_tri_ids_v2_ref,
-                 {})):
+        kw4, kw3 = kws.get("v4", {}), kws.get("v3", {})
+        *_, fits4 = rc.v4_setup(*args, height=H, row_tile=2,
+                                cand_s=kw4.get("cand_s", 384), cand_l=128,
+                                long_thresh=kw4.get("long_thresh", 48.0))
+        fits3 = rc.v3_setup(*args, height=H, row_tile=2,
+                            **{**V3_DEFAULTS, **kw3})[4]
+        fits = {"v4": bool(fits4), "v2": None, "v3": bool(fits3)}
+        if case in ("engine_density", "long_triangles"):
+            assert fits["v4"], f"v4 budgets must hold on {case}"
+        if case == "forced_fallback":
+            assert not fits["v4"] and not fits["v3"], fits
+        tests = needed_tests(torch, *args, H, W)
+        nbytes = (args[0].numel() * 4 + args[1].numel() * 4
+                  + args[2].numel() + H * W * 4)
+        b_ops = tests * FLOPS_PER_TEST / PEAK_F32_FLOPS * 1e3
+        b_bytes = nbytes / PEAK_BYTES * 1e3
+        for name in names:
+            kern, ref = funcs[name]
+            kk = kws.get(name, {})
             rc.reset_counters()
             out = kern(*args, height=H, width=W, **kk)
             torch.cuda.synchronize()
@@ -280,30 +371,22 @@ def main():
                 raise AssertionError(
                     f"{name} kernel != plain on {case}: "
                     f"{int((out != plain).sum())} pixels differ")
-            if name == "v4":
-                expect = [1, 0] if bool(fits) else [0, 1]
-            else:
-                expect = [0, 1]
+            # The kernel that did the work: the one called, or v2 where
+            # the budgets did not hold.
+            expect = [0] * len(rc.WORK_SLOTS)
+            expect[rc.WORK_SLOTS.index(name if fits[name] in (None, True)
+                                       else "v2")] = 1
             assert work == expect, (case, name, work, expect)
-            if case == "forced_fallback" and name == "v4":
-                assert work == [0, 1], "v2 must do the work on fallback"
             ms = cuda_median_ms(lambda: kern(*args, height=H, width=W, **kk))
             kernel_ms = cuda_median_ms(bare_launch(rc, name, args, H, W, kk))
             plain_ms = cuda_median_ms(
                 lambda: ref(*args, height=H, width=W, **kk), reps=5,
                 warmup=1)
-            tests = needed_tests(torch, *args, H, W)
-            nbytes = (args[0].numel() * 4 + args[1].numel() * 4
-                      + args[2].numel() + H * W * 4)
-            b_ops = tests * FLOPS_PER_TEST / PEAK_F32_FLOPS * 1e3
-            b_bytes = nbytes / PEAK_BYTES * 1e3
-            if case in ("engine_density", "long_triangles"):
-                assert bool(fits), f"v4 budgets must hold on {case}"
             rows[name][case] = dict(
                 ms=ms, kernel_only_ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=max(b_ops, b_bytes),
                 bound_by="operations" if b_ops >= b_bytes else "bytes",
-                candidate_tests=tests, fits=bool(fits), work=work,
+                candidate_tests=tests, fits=fits[name], work=work,
                 covered=float((out >= 0).float().mean()))
             phase("kernel", kernel=name, case=case, equal=True,
                   **rows[name][case])
@@ -320,10 +403,8 @@ def main():
     assert engine.params.engine.use_pallas_raster is True
     assert engine.params.engine.pallas_raster_kernel == "v4"
     rc.reset_counters()
-    res, ms, checked, recs = drive_main_path(engine, seq, OUT)
-    launches = {"v4": rc.rasterize_tri_ids_v4.launches,
-                "v2": rc.rasterize_tri_ids_v2.launches}
-    work = rc.work_counters(dev).tolist()
+    res, ms, checked, v3_fits, recs = drive_main_path(engine, seq, OUT)
+    launches, work = launch_counts(rc, dev)
     assert res.frames_processed == n_frames and res.frames_failed == 0
     health = [r["health"] for r in recs]
     assert len(health) == n_frames and all(h == 1.0 for h in health), health
@@ -340,10 +421,119 @@ def main():
           mean_rmse=res.mean_rmse, mean_precision=res.mean_precision,
           mean_recall=res.mean_recall, final_coverage=res.final_coverage,
           final_abs_rel=res.final_abs_rel, final_delta1=res.final_delta1,
-          launches=launches, work_v4_v2=work, idmap_checked_frames=checked,
+          launches=launches, work=work, idmap_checked_frames=checked,
+          v3_fits_checked_frames=v3_fits,
           num_tris_last=recs[-1]["num_tris"])
 
-    # 5. small-input agreement: card path vs CPU path --------------------
+    # 5. the windowed streaming path -----------------------------------
+    # (a) windows of 6, synchronous triangulation, the phase-4 sequence,
+    # against the JAX package's CPU run of it.
+    out_a = os.path.join(OUT, "window_sync")
+    os.makedirs(out_a, exist_ok=True)
+    eng_a = Flame(W, H, cam=VGA, params=params, device=dev)
+    rc.reset_counters()
+    t0 = time.perf_counter()
+    res_a = run_offline_windowed(synthetic_frames(seq), VGA, params,
+                                 out_dir=out_a, window=6, engine=eng_a)
+    wall_a = time.perf_counter() - t0
+    launches_a, work_a = launch_counts(rc, dev)
+    with open(os.path.join(out_a, "telemetry.jsonl")) as f:
+        health_a = [json.loads(line)["health"] for line in f]
+    assert res_a.frames_processed == n_frames and res_a.frames_failed == 0
+    assert health_a == [1.0] * n_frames, health_a
+    assert launches_a["v4"] >= n_frames, launches_a
+    ref = JAX_WINDOWED_VGA
+    band = {"rmse_rel_diff": abs(res_a.mean_rmse - ref["idepth_rmse"])
+            / ref["idepth_rmse"],
+            "coverage_diff": abs(res_a.final_coverage - ref["coverage"])}
+    assert band["rmse_rel_diff"] <= 0.15 and band["coverage_diff"] <= 0.05, \
+        (res_a, band)
+
+    # (b) streaming: host frames, prefetch depth 2, deferred triangulation.
+    n_b, win = 120, 6
+    seq_b = make_sequence(n_b, VGA, motion="strafe", scene="room",
+                          device=dev)
+    imgs_b = torch.clamp(seq_b.images, 0, 255).to(torch.uint8).cpu().numpy()
+    q_b = seq_b.poses.q.cpu().numpy()
+    t_b = seq_b.poses.t.cpu().numpy()
+    frames_b = [(float(seq_b.timestamps[i]), i,
+                 SE3.from_quat_trans(q_b[i], t_b[i]), imgs_b[i], i % 6 == 0)
+                for i in range(n_b)]
+    eng_b = Flame(W, H, cam=VGA, params=params, device=dev,
+                  deferred_triangulation=True)
+    rc.reset_counters()
+    secs, wrows = stream_windows(eng_b, frames_b, seq_b.depths, win)
+    launches_b, work_b = launch_counts(rc, dev)
+    pending_at_end = len(eng_b._pending_tri)
+    eng_b._apply_pending_triangulation(block=True)
+    eng_b.shutdown()
+    health_b = [r["health"] for rs in wrows for r in rs]
+    assert len(health_b) == n_b and all(h == 1.0 for h in health_b)
+    assert eng_b.num_failed_frames == 0
+    assert launches_b["v4"] >= n_b, launches_b
+    covs = [rs[-1]["coverage"] for rs in wrows]
+    cov_steady = covs[4:]               # after the map build-up
+    assert max(cov_steady) > 0.4, covs
+    assert min(cov_steady) > 0.5 * max(cov_steady), covs
+    w_steady = 2                        # timing: after allocator warm-up
+    ms_frame = np.asarray(secs[w_steady:]) * 1e3 / win
+    truth = [TruthStats.from_record(r) for rs in wrows[4:] for r in rs]
+    # The per-frame path over the same frames, for the steady accuracy
+    # of the two paths on the same frames (windows 4 on).
+    eng_f = Flame(W, H, cam=VGA, params=params, device=dev)
+    truth_f = []
+    for i, f in enumerate(frames_b):
+        assert eng_f.update(*f, gt_depth=seq_b.depths[i])
+        rec = eng_f.flush_stats()
+        if i >= 4 * win:
+            truth_f.append(TruthStats.from_record(rec))
+    # The copy-stream upload changes nothing: with synchronous
+    # triangulation, prefetched windows leave the state bit for bit as
+    # plain update_window calls do.
+    eng_p, eng_q = (Flame(W, H, cam=VGA, params=params, device=dev)
+                    for _ in range(2))
+    n_cmp = 4 * win
+    stream_windows(eng_p, frames_b[:n_cmp], seq_b.depths[:n_cmp], win)
+    for w in range(0, n_cmp, win):
+        assert eng_q.update_window(frames_b[w:w + win],
+                                   seq_b.depths[w:w + win])
+    sp, sq = state_to_numpy(eng_p.state), state_to_numpy(eng_q.state)
+    differ = [k for k in sp if not np.array_equal(sp[k], sq[k],
+                                                  equal_nan=True)]
+    assert not differ, f"prefetched != plain in {differ}"
+    phase("window_path",
+          sync_frames=res_a.frames_processed, sync_wall_s=wall_a,
+          sync_mean_rmse=res_a.mean_rmse,
+          sync_mean_precision=res_a.mean_precision,
+          sync_mean_recall=res_a.mean_recall,
+          sync_final_coverage=res_a.final_coverage,
+          sync_final_abs_rel=res_a.final_abs_rel,
+          sync_final_delta1=res_a.final_delta1, sync_jax_cpu=ref,
+          sync_band=band, sync_launches=launches_a, sync_work=work_a,
+          stream_frames=n_b, stream_window=win, stream_prefetch_depth=2,
+          stream_ms_per_frame_p50=float(np.percentile(ms_frame, 50)),
+          stream_ms_per_frame_p95=float(np.percentile(ms_frame, 95)),
+          stream_frames_per_s=float(len(ms_frame) * win
+                                    / np.sum(secs[w_steady:])),
+          stream_coverage_per_window=covs,
+          stream_topo_installs=eng_b._topo_installs,
+          stream_tri_superseded=eng_b._tri_superseded,
+          stream_tri_dropped=eng_b._tri_dropped,
+          stream_stale_tri_windows=eng_b._stale_tri_windows,
+          stream_pending_at_end=pending_at_end,
+          stream_steady_mean_rmse=float(np.nanmean(
+              [t.rmse for t in truth])),
+          stream_steady_mean_recall=float(np.nanmean(
+              [t.recall for t in truth])),
+          perframe_steady_mean_rmse=float(np.nanmean(
+              [t.rmse for t in truth_f])),
+          perframe_steady_mean_recall=float(np.nanmean(
+              [t.recall for t in truth_f])),
+          prefetch_equals_plain_frames=n_cmp,
+          stream_perf_s=eng_b.perf, stream_launches=launches_b,
+          stream_work=work_b)
+
+    # 6. small-input agreement: card path vs CPU path --------------------
     cam = Pinhole(105.0, 105.0, 63.5, 47.5, 128, 96)
     small = FlameParams.from_dict({"engine": {"max_features": 256,
                                               "max_keyframes": 4}})
@@ -358,17 +548,18 @@ def main():
 
     # Result lines -----------------------------------------------------
     replaces = {"v4": "flame_ros_tpu/ops/raster_pallas.py:458",
-                "v2": "flame_ros_tpu/ops/raster_pallas.py:128"}
+                "v2": "flame_ros_tpu/ops/raster_pallas.py:128",
+                "v3": "flame_ros_tpu/ops/raster_pallas.py:288"}
     kernels = []
-    for name in ("v4", "v2"):
+    for name in names:
         r = rows[name]["engine_density"]   # y-sorted, as the engine's
         kernels.append({
             "name": f"raster_{name}", "route": "cuda",
             "source": "flame_ros_torch/csrc/raster.cu",
             "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": max_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "max_abs_err": max_err[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -233,6 +233,8 @@ class EngineParams:
     # resolves True: "v4" (exact per-tile candidate lists from a device
     # sort; falls back to v2 on the device when a frame's geometry exceeds
     # the candidate budgets) or "v2" (per-tile triangle-block ranges).
+    # "v3" runs v2, as in the JAX package, whose dispatch never reaches
+    # its v3 kernel.
     pallas_raster_kernel: str = "v4"
 
     # NLTGV2 adjoint formulation. "gather" (the incidence-list gather,
@@ -388,7 +390,7 @@ class FlameParams:
             raise ValueError(
                 "nltgv2_adjoint='matmul' is a TPU-only formulation; "
                 "use 'gather'")
-        if eng.pallas_raster_kernel not in ("v4", "v2"):
+        if eng.pallas_raster_kernel not in ("v4", "v3", "v2"):
             raise ValueError(
                 f"unknown pallas_raster_kernel {eng.pallas_raster_kernel!r}")
         updates = {}

@@ -1,18 +1,21 @@
 """Offline batch runner over posed frames (synthetic dataset).
 
-Counterpart of `run_offline` and the synthetic branch of `main` in
-`flame_ros_tpu/frontends/offline_runner.py`: drive the engine frame by
-frame, compute GT truth stats per frame (confusion matrix + stats.txt,
+Counterpart of `run_offline`, `run_offline_windowed` and the synthetic
+branch of `main` in `flame_ros_tpu/frontends/offline_runner.py`: drive
+the engine frame by frame, or in poseframe-aligned windows of frames,
+compute GT truth stats per frame (confusion matrix + stats.txt,
 reference protocol), stream per-frame telemetry as JSONL, and print one
 summary JSON line.
 
 Usage:
   python -m flame_ros_torch.frontends.offline_runner --dataset synthetic \\
-      --frames 60 --resolution vga --out /tmp/flame_out [--device cuda]
+      --frames 60 --resolution vga --out /tmp/flame_out [--device cuda] \\
+      [--window 6] [--save-products]
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time as time_mod
@@ -73,13 +76,121 @@ def _final_depth_metrics(res: RunResult, engine: Flame, last_gt) -> None:
     res.final_delta1 = float(m["delta1"])
 
 
+def _finish(res: RunResult, engine: Flame, last_gt, rmses, precs, recs,
+            writer, out_dir, save_products, cam) -> RunResult:
+    if rmses:
+        res.mean_rmse = float(np.mean(rmses))
+    if precs:
+        res.mean_precision = float(np.mean(precs))
+    if recs:
+        res.mean_recall = float(np.mean(recs))
+    _final_depth_metrics(res, engine, last_gt)
+    res.final_coverage = float(engine.stats_.stats("coverage"))
+    if writer:
+        res.stats_path = writer.path
+    if out_dir and save_products:
+        uv, x, normals, tris, keep, edges = engine.get_inverse_depth_mesh()
+        np.savez(os.path.join(out_dir, "final_mesh.npz"),
+                 vertices_px=uv, idepths=x, normals=normals,
+                 triangles=tris, tri_validity=keep, edges=edges, K=cam.K)
+        np.save(os.path.join(out_dir, "final_idepth.npy"),
+                engine.get_inverse_depth_map())
+    return res
+
+
+def run_offline_windowed(frames: Iterable, cam, params: FlameParams,
+                         out_dir: Optional[str] = None, window: int = 6,
+                         max_frames: Optional[int] = None,
+                         save_products: bool = False, device=None,
+                         engine: Optional[Flame] = None) -> RunResult:
+    """Window-batched offline run: frames go to the engine in
+    poseframe-aligned windows of up to `window` frames (`update_window`),
+    with device-side GT evaluation; the stats of a window come back in
+    one read. Telemetry still lands per frame."""
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if engine is None:
+        engine = Flame(cam.width, cam.height, cam=cam, params=params,
+                       device=device)
+    writer = StatsFileWriter(out_dir) if out_dir else None
+    jsonl = open(os.path.join(out_dir, "telemetry.jsonl"), "w") \
+        if out_dir else None
+    pf_every = params.input.poseframe_subsample_factor
+    sub = params.input.subsample_factor
+    res = RunResult()
+    rmses, precs, recs = [], [], []
+    last_gt = None
+    t_start = time_mod.perf_counter()
+    n_proc = 0
+    buf, gts = [], []
+
+    def flush():
+        nonlocal n_proc
+        if not buf:
+            return
+        has_gt = all(g is not None for g in gts)
+        if not engine.update_window(list(buf), gts if has_gt else None):
+            res.frames_failed += len(buf)
+            buf.clear()
+            gts.clear()
+            return
+        for (t, fid, _, _, _), rec in zip(buf,
+                                          engine.flush_window_stats()):
+            if has_gt and rec.get("true_pos", -1) >= 0:
+                ts = TruthStats.from_record(rec)
+                rmses.append(ts.rmse)
+                if np.isfinite(ts.precision):
+                    precs.append(ts.precision)
+                if np.isfinite(ts.recall):
+                    recs.append(ts.recall)
+                if writer:
+                    writer.append(n_proc, t, 0.0, int(rec["num_vtx"]),
+                                  int(rec["num_tris"]), ts,
+                                  rec["total_photo_error"],
+                                  rec["avg_photo_error"])
+            if jsonl:
+                jsonl.write(json.dumps({"img_id": fid, "timestamp": t,
+                                        **rec}) + "\n")
+            n_proc += 1
+        buf.clear()
+        gts.clear()
+
+    try:
+        for frame in frames:
+            if max_frames is not None and frame.img_id >= max_frames:
+                break
+            if frame.img_id % sub:
+                continue
+            is_pf = (n_proc + len(buf)) % pf_every == 0
+            if is_pf and buf:
+                flush()
+            pose = SE3.from_quat_trans(frame.quat, frame.trans)
+            buf.append((frame.time, frame.img_id, pose, frame.gray, is_pf))
+            gts.append(frame.depth if _has_gt(frame.depth) else None)
+            if gts[-1] is not None:
+                last_gt = gts[-1]
+            if len(buf) >= window:
+                flush()
+        flush()
+    finally:
+        if jsonl:
+            jsonl.close()
+    res.frames_processed = n_proc
+    res.fps = n_proc / max(time_mod.perf_counter() - t_start, 1e-6)
+    return _finish(res, engine, last_gt, rmses, precs, recs, writer,
+                   out_dir, save_products, cam)
+
+
 def run_offline(frames: Iterable, cam, params: FlameParams,
                 out_dir: Optional[str] = None,
                 max_frames: Optional[int] = None,
-                device=None, engine: Optional[Flame] = None) -> RunResult:
+                device=None, engine: Optional[Flame] = None,
+                save_products: bool = False) -> RunResult:
     """Drive the engine over frames with (img_id, time, gray, depth, quat,
     trans) attributes. Runs on the card unless `device` says otherwise;
-    `engine` lets a caller pass (and afterwards inspect) its own engine."""
+    `engine` lets a caller pass (and afterwards inspect) its own engine.
+    save_products writes the final mesh and dense idepth map to
+    out_dir."""
     if engine is None:
         engine = Flame(cam.width, cam.height, cam=cam, params=params,
                        device=device)
@@ -144,17 +255,8 @@ def run_offline(frames: Iterable, cam, params: FlameParams,
 
     res.frames_processed = n_proc
     res.fps = n_proc / max(time_mod.perf_counter() - t_start, 1e-6)
-    if rmses:
-        res.mean_rmse = float(np.mean(rmses))
-    if precs:
-        res.mean_precision = float(np.mean(precs))
-    if recs:
-        res.mean_recall = float(np.mean(recs))
-    _final_depth_metrics(res, engine, last_gt)
-    res.final_coverage = float(engine.stats_.stats("coverage"))
-    if writer:
-        res.stats_path = writer.path
-    return res
+    return _finish(res, engine, last_gt, rmses, precs, recs, writer,
+                   out_dir, save_products, cam)
 
 
 def synthetic_frames(seq):
@@ -183,7 +285,17 @@ def main(argv=None):
     p.add_argument("--resolution", default="qvga", choices=["qvga", "vga"])
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
+    p.add_argument("--window", type=int, default=0,
+                   help="batch N frames per update_window call, in "
+                        "poseframe-aligned windows (0 = per-frame)")
+    p.add_argument("--save-products", action="store_true",
+                   help="write final_mesh.npz and final_idepth.npy to "
+                        "--out")
     args = p.parse_args(argv)
+    if args.window < 0:
+        p.error("--window must be >= 0")
+    if args.save_products and not args.out:
+        p.error("--save-products needs --out")
 
     from flame_ros_torch.datasets.synthetic import QVGA, VGA, make_sequence
     device = resolve_device(args.device)
@@ -194,8 +306,11 @@ def main(argv=None):
                         motion=args.motion, scene=args.scene, device=device)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    res = run_offline(synthetic_frames(seq), cam, params, out_dir=args.out,
-                      max_frames=args.frames, device=device)
+    run = run_offline if args.window == 0 else functools.partial(
+        run_offline_windowed, window=args.window)
+    res = run(synthetic_frames(seq), cam, params, out_dir=args.out,
+              max_frames=args.frames, device=device,
+              save_products=args.save_products)
     summary = {
         "frames": res.frames_processed,
         "failed": res.frames_failed,

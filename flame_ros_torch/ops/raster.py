@@ -1,8 +1,8 @@
 """Mesh rasterization: triangle-id buffers, affine idepth planes, dense
 inverse-depth maps.
 
-Counterpart of `flame_ros_tpu/ops/raster.py` (the per-frame raster
-products; normals and display filters are not ported yet). The Delaunay
+Counterpart of `flame_ros_tpu/ops/raster.py`: the per-frame raster
+products, and the getters' normals and display filters. The Delaunay
 graph's per-vertex smoothed inverse depth defines an affine idepth
 function over each triangle, so the dense map is an id-buffer
 rasterization followed by one affine evaluation. Invalid pixels are NaN
@@ -105,9 +105,10 @@ def rasterize_ids(vtx_pos, vtx_x, tris, tri_valid, *, height: int,
     per-frame raster products; the dense idepth evaluation is deferred
     (idepth_from_ids / sample_idepth_at).
 
-    use_kernel=True runs the hand-written raster (`kernel` "v4", with
-    its in-graph v2 fallback, or "v2"): the CUDA kernels on CUDA tensors,
-    their plain versions on CPU tensors."""
+    use_kernel=True runs the hand-written raster: "v4" (with its v2
+    fallback on the device), any other name v2, as the JAX package's
+    dispatch does (its v3 is reached only by direct calls): the CUDA
+    kernels on CUDA tensors, their plain versions on CPU tensors."""
     planes, pvalid = triangle_planes(vtx_pos, vtx_x, tris, tri_valid)
     if use_kernel and kernel == "v4":
         idmap = raster_cuda.rasterize_tri_ids_v4(
@@ -157,6 +158,94 @@ def sample_idepth_at(idmap, planes, uv):
     g = planes[ids.clamp(min=0).long()]
     xi = g[..., 0] + g[..., 1] * uv[..., 0] + g[..., 2] * uv[..., 1]
     return torch.where(ok, xi, torch.full_like(xi, float("nan"))), ok
+
+
+def _face_normals(g, cam):
+    """Unit normals of the planes idepth(u, v) = g0 + g1 u + g2 v, [..., 3]
+    (a plane n.X = d has n ∝ (fx g1, fy g2, g0 + g1 cx + g2 cy))."""
+    n = torch.stack([cam.fx * g[..., 1], cam.fy * g[..., 2],
+                     g[..., 0] + g[..., 1] * cam.cx + g[..., 2] * cam.cy], -1)
+    return n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
+                           min=1e-12)
+
+
+def rasterize_normal_map(vtx_pos, vtx_x, tris, tri_valid, cam):
+    """Dense per-pixel surface normals [H, W, 3] from the mesh's face
+    planes, oriented toward the camera; NaN outside the mesh (the
+    reference's debug/normals image). Uses the plain raster, as the JAX
+    package's getter uses its XLA raster."""
+    planes, pvalid = triangle_planes(vtx_pos, vtx_x, tris, tri_valid)
+    idmap = rasterize_tri_ids(vtx_pos, tris, pvalid, height=cam.height,
+                              width=cam.width)
+    n = _face_normals(planes[idmap.clamp(min=0).long()], cam)
+    dev = vtx_pos.device
+    u = torch.arange(cam.width, dtype=torch.float32,
+                     device=dev)[None, :].expand(cam.height, cam.width)
+    v = torch.arange(cam.height, dtype=torch.float32,
+                     device=dev)[:, None].expand(cam.height, cam.width)
+    ray = cam.ray(torch.stack([u, v], -1))
+    n = torch.where(((n * ray).sum(-1) > 0)[..., None], -n, n)
+    return torch.where((idmap >= 0)[..., None], n,
+                       torch.full_like(n, float("nan")))
+
+
+def vertex_normals(vtx_pos, x, w, cam):
+    """Per-vertex unit surface normals [N, 3] from the regularizer's plane
+    gradients (reference getInverseDepthMesh normals): with idepth
+    xi = x + w.(p - p_i), n ∝ (fx w1, fy w2, x - w.(p - principal
+    point)), flipped so that n . view_ray < 0."""
+    n = torch.stack([
+        cam.fx * w[:, 0], cam.fy * w[:, 1],
+        x - w[:, 0] * (vtx_pos[:, 0] - cam.cx)
+        - w[:, 1] * (vtx_pos[:, 1] - cam.cy)], -1)
+    n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
+                        min=1e-12)
+    flip = (n * cam.ray(vtx_pos)).sum(-1) > 0
+    return torch.where(flip[:, None], -n, n)
+
+
+def mesh_display_filters(vtx_pos, x, w, tris, tri_valid, cam, *,
+                         filter_oblique: bool = True,
+                         oblique_normal_thresh: float = 1.57,
+                         oblique_idepth_diff_factor: float = 0.35,
+                         oblique_idepth_diff_abs: float = 0.1,
+                         filter_long_edges: bool = True,
+                         edge_length_thresh: float = 0.333,
+                         filter_by_idepth: bool = True,
+                         min_triangle_idepth: float = 0.01):
+    """Display-only triangle validity [T] (reference output/* filters:
+    oblique faces, long edges, minimum idepth). They change what is
+    published, never the graph."""
+    t = tris.long()
+    a, b, c = (vtx_pos[t[:, k]] for k in range(3))
+    xa, xb, xc = (x[t[:, k]] for k in range(3))
+    keep = tri_valid
+    if filter_long_edges:
+        max_len = torch.maximum(torch.maximum(
+            torch.linalg.norm(a - b, dim=-1),
+            torch.linalg.norm(b - c, dim=-1)),
+            torch.linalg.norm(c - a, dim=-1))
+        keep = keep & (max_len <= edge_length_thresh * cam.width)
+    xi_max = torch.maximum(torch.maximum(xa, xb), xc)
+    xi_min = torch.minimum(torch.minimum(xa, xb), xc)
+    if filter_by_idepth:
+        keep = keep & (xi_min >= min_triangle_idepth)
+    if filter_oblique:
+        # View-grazing faces: angle between the face normal and the view
+        # ray through the centroid, plus the idepth spread over the face.
+        g, gok = triangle_planes(vtx_pos, x, tris, tri_valid)
+        n = _face_normals(g, cam)
+        ray = cam.ray((a + b + c) / 3.0)
+        ray = ray / torch.clamp(torch.linalg.norm(ray, dim=-1, keepdim=True),
+                                min=1e-12)
+        angle = torch.arccos(torch.clamp(torch.abs((n * ray).sum(-1)),
+                                         -1.0, 1.0))
+        spread = xi_max - xi_min
+        oblique = ((angle > oblique_normal_thresh)
+                   | ((spread > oblique_idepth_diff_factor * xi_max)
+                      & (spread > oblique_idepth_diff_abs)))
+        keep = keep & ~oblique & gok
+    return keep
 
 
 def coverage(idepth_map):

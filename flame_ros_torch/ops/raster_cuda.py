@@ -1,5 +1,5 @@
-"""Hand-written CUDA triangle-id rasterizers (v4 and v2) and their plain
-PyTorch versions.
+"""Hand-written CUDA triangle-id rasterizers (v4, v3 and v2) and their
+plain PyTorch versions.
 
 Counterpart of `flame_ros_tpu/ops/raster_pallas.py`:
 
@@ -7,6 +7,11 @@ Counterpart of `flame_ros_tpu/ops/raster_pallas.py`:
   (raster_pallas.py:350-482): device sort by (class, ymin), exact
   per-tile candidate ranges, and an in-graph fallback to v2 when a
   frame's geometry exceeds the candidate budgets;
+- `rasterize_tri_ids_v3` replaces `rasterize_tri_ids_pallas_v3`
+  (raster_pallas.py:180-315): the same device sort, then per tile at
+  most `s_blocks` blocks of short triangles and `l_blocks` shared blocks
+  of long ones, with the same fallback to v2. No engine path reaches it,
+  as in the JAX package (`pallas_raster_kernel="v3"` runs v2);
 - `rasterize_tri_ids_v2` replaces `rasterize_tri_ids_pallas`
   (raster_pallas.py:27-147): per-tile contiguous triangle-block ranges.
 
@@ -23,8 +28,8 @@ bit for bit.
 
 Launch counts: each wrapper has a `launches` integer that counts its
 kernel launches. The kernels also count, in a small device tensor
-(`work_counters`), the launches that did the work — the v4 -> v2
-fallback launches both and exactly one of them works.
+(`work_counters`), the launches that did the work — the v4 -> v2 and
+v3 -> v2 fallbacks launch both kernels and exactly one of them works.
 """
 from __future__ import annotations
 
@@ -103,22 +108,30 @@ def _get_lib():
             lib.raster_v2_launch.restype = ci
             lib.raster_v2_launch.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci,
                                              ci, vp, vp]
+            lib.raster_v3_launch.restype = ci
+            lib.raster_v3_launch.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci,
+                                             ci, ci, ci, ci, ci, vp, vp]
             _lib = lib
         return _lib
 
 
+WORK_SLOTS = ("v4", "v2", "v3")
+
+
 def work_counters(device) -> torch.Tensor:
-    """Device int32 [2]: launches of (v4, v2) that did the work."""
+    """Device int32 [3]: launches of (v4, v2, v3) that did the work."""
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if dev not in _work:
-        _work[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+        _work[dev] = torch.zeros(len(WORK_SLOTS), dtype=torch.int32,
+                                 device=dev)
     return _work[dev]
 
 
 def reset_counters() -> None:
     rasterize_tri_ids_v4.launches = 0
+    rasterize_tri_ids_v3.launches = 0
     rasterize_tri_ids_v2.launches = 0
     for w in _work.values():
         w.zero_()
@@ -162,13 +175,18 @@ def _check(vtx_pos, tris, tri_valid, height, width, row_tile):
         raise ValueError(f"width {width} too small")
 
 
-def v4_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
-             cand_s: int, cand_l: int, long_thresh: float):
-    """The v4 wrapper's device-side preparation (raster_pallas.py:397-438).
+def _class_sort(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
+                long_thresh: float):
+    """The device sort shared by v4 and v3 (raster_pallas.py:241-249,
+    :407-415): triangles ordered by key = class * 1e7 + clip(ymin), class
+    0 for a y-extent <= long_thresh, 1 for a longer one, 2 for an
+    invalid one; f32 keys, a stable sort (jnp.argsort is stable), and
+    left-side searchsorted as jnp.searchsorted.
 
-    Returns (M [12, T] sorted slab, lo_pos [n_tiles] int32, hi_pos
-    [n_tiles] int32, counts [2] int32 = (n_short, n_long), fits [] bool)."""
-    T = tris.shape[0]
+    Returns (corners (a, b, c), perm [T], n_short [] int32, n_live []
+    int32, lo_pos [n_tiles] int32, hi_pos [n_tiles] int32): the sorted
+    positions of the short triangles that may overlap each tile of
+    `row_tile` rows are [lo_pos, hi_pos)."""
     dev = vtx_pos.device
     a, b, c = _corners(vtx_pos, tris)
     ys = torch.stack([a[:, 1], b[:, 1], c[:, 1]], -1)
@@ -180,17 +198,10 @@ def v4_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
     key = klass * OFF + torch.clamp(ymin, 0.0, OFF - 1.0)
     perm = torch.argsort(key, stable=True)
     key_s = key[perm]
-    M = torch.cat([
-        edge_coeffs(a, b), edge_coeffs(b, c), edge_coeffs(c, a),
-        tri_valid.to(torch.float32)[None, :],
-        torch.arange(T, dtype=torch.float32, device=dev)[None, :],
-        torch.zeros((1, T), dtype=torch.float32, device=dev),
-    ], 0)[:, perm].contiguous()
     # OFF - 0.5 and 2*OFF - 0.5 in f32 (they round to 1e7 and 2e7).
     thr = torch.full((2,), OFF - 0.5, dtype=torch.float32, device=dev)
     thr[1] = 2 * OFF - 0.5
     n_short, n_live = torch.searchsorted(key_s, thr).to(torch.int32)
-    n_long = n_live - n_short
     n_tiles = height // row_tile
     tile_y0 = torch.arange(n_tiles, dtype=torch.float32, device=dev) \
         * row_tile
@@ -199,9 +210,68 @@ def v4_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
     hi_pos = torch.minimum(
         torch.searchsorted(key_s, tile_y0 + row_tile).to(torch.int32),
         n_short)
+    return (a, b, c), perm, n_short, n_live, lo_pos, hi_pos
+
+
+def v4_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
+             cand_s: int, cand_l: int, long_thresh: float):
+    """The v4 wrapper's device-side preparation (raster_pallas.py:397-438).
+
+    Returns (M [12, T] sorted slab, lo_pos [n_tiles] int32, hi_pos
+    [n_tiles] int32, counts [2] int32 = (n_short, n_long), fits [] bool)."""
+    T = tris.shape[0]
+    dev = vtx_pos.device
+    (a, b, c), perm, n_short, n_live, lo_pos, hi_pos = _class_sort(
+        vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
+        long_thresh=long_thresh)
+    M = torch.cat([
+        edge_coeffs(a, b), edge_coeffs(b, c), edge_coeffs(c, a),
+        tri_valid.to(torch.float32)[None, :],
+        torch.arange(T, dtype=torch.float32, device=dev)[None, :],
+        torch.zeros((1, T), dtype=torch.float32, device=dev),
+    ], 0)[:, perm].contiguous()
+    n_long = n_live - n_short
     fits = (torch.max(hi_pos - lo_pos) <= cand_s) & (n_long <= cand_l)
     counts = torch.stack([n_short, n_long]).contiguous()
     return M, lo_pos.contiguous(), hi_pos, counts, fits
+
+
+def v3_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
+             tri_block: int, s_blocks: int, l_blocks: int,
+             long_thresh: float):
+    """The v3 wrapper's device-side preparation (raster_pallas.py:225-283).
+
+    Returns (C [11, T] sorted slab = 9 edge coefficients, validity and
+    original id as f32; lo_blk [n_tiles] int32, the tile's first short
+    block; nblk_s [n_tiles] int32, its number of short blocks; long2 [2]
+    int32 = (long_lo, n_lblk), the shared long blocks; fits [] bool;
+    (B, n_blocks, sb, lb), the block size, block count and the two block
+    budgets clipped to the block count)."""
+    T = tris.shape[0]
+    B = min(tri_block, T)
+    if T % B:
+        B = T
+    n_blocks = T // B
+    (a, b, c), perm, n_short, n_live, lo_pos, hi_pos = _class_sort(
+        vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
+        long_thresh=long_thresh)
+    # Columns in sorted order; the last row holds each column's original
+    # id (the permutation itself).
+    C = torch.cat([
+        torch.cat([edge_coeffs(a, b), edge_coeffs(b, c), edge_coeffs(c, a),
+                   tri_valid.to(torch.float32)[None, :]], 0)[:, perm],
+        perm.to(torch.float32)[None, :]], 0).contiguous()
+    lo_blk = torch.div(lo_pos, B, rounding_mode="floor")
+    nblk_s = torch.clamp(torch.div(hi_pos + B - 1, B, rounding_mode="floor")
+                         - lo_blk, min=0).to(torch.int32)
+    long_lo = torch.div(n_short, B, rounding_mode="floor")
+    n_lblk = torch.clamp(torch.div(n_live + B - 1, B, rounding_mode="floor")
+                         - long_lo, min=0)
+    sb, lb = min(s_blocks, n_blocks), min(l_blocks, n_blocks)
+    fits = (torch.max(nblk_s) <= sb) & (n_lblk <= lb)
+    long2 = torch.stack([long_lo, n_lblk]).to(torch.int32).contiguous()
+    return (C, lo_blk.to(torch.int32).contiguous(), nblk_s.contiguous(),
+            long2, fits, (B, n_blocks, sb, lb))
 
 
 def v2_setup(vtx_pos, tris, tri_valid, *, height: int, width: int,
@@ -328,6 +398,60 @@ def rasterize_tri_ids_v2_ref(vtx_pos, tris, tri_valid, *, height: int,
                     width=width, row_tile=row_tile)
 
 
+def _v3_eval(C, lo_blk, nblk_s, long2, blocks, *, T, height, width,
+             row_tile):
+    """Plain v3 evaluation given the setup: per tile, its active short
+    blocks lo_blk + k (k < nblk_s) and the shared long blocks long_lo + k
+    (k < n_lblk), block indices clipped to the block range as the Pallas
+    index map does; (x*a + y*b) + c, the lowest original id wins."""
+    B, n_blocks, sb, lb = blocks
+    dev = C.device
+    px_tile = row_tile * width
+    n_tiles = (height * width) // px_tile
+    long_lo, n_lblk = long2.tolist()
+    lblks = [min(max(long_lo + k, 0), n_blocks - 1)
+             for k in range(min(lb, n_lblk))]
+    out = torch.full((n_tiles, px_tile), -1, dtype=torch.int32, device=dev)
+    pidx = torch.arange(px_tile, device=dev)
+    for i, (lo, ns) in enumerate(zip(lo_blk.tolist(), nblk_s.tolist())):
+        blks = [min(max(lo + k, 0), n_blocks - 1)
+                for k in range(min(sb, ns))] + lblks
+        if not blks:
+            continue
+        cols = torch.cat([torch.arange(k * B, (k + 1) * B, device=dev)
+                          for k in blks])
+        idx = pidx + i * px_tile
+        ux = (idx % width).to(torch.float32)[:, None]
+        uy = (idx // width).to(torch.float32)[:, None]
+        Ct = C[:, cols]
+        inside = Ct[9:10] > 0
+        for e in range(3):
+            E = (ux * Ct[3 * e:3 * e + 1] + uy * Ct[3 * e + 1:3 * e + 2]) \
+                + Ct[3 * e + 2:3 * e + 3]
+            inside = inside & (E >= EPS)
+        ids = Ct[10:11].to(torch.int32)
+        best = torch.where(inside, ids, T + 1).min(-1).values
+        out[i] = torch.where(best > T, -1, best)
+    return out.reshape(height, width)
+
+
+def rasterize_tri_ids_v3_ref(vtx_pos, tris, tri_valid, *, height: int,
+                             width: int, row_tile: int = 2,
+                             tri_block: int = 128, s_blocks: int = 5,
+                             l_blocks: int = 4, long_thresh: float = 64.0):
+    """Plain PyTorch version of the v3 kernel, with its v2 fallback."""
+    _check(vtx_pos, tris, tri_valid, height, width, row_tile)
+    C, lo_blk, nblk_s, long2, fits, blocks = v3_setup(
+        vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
+        tri_block=tri_block, s_blocks=s_blocks, l_blocks=l_blocks,
+        long_thresh=long_thresh)
+    if bool(fits):
+        return _v3_eval(C, lo_blk, nblk_s, long2, blocks, T=tris.shape[0],
+                        height=height, width=width, row_tile=row_tile)
+    return rasterize_tri_ids_v2_ref(vtx_pos, tris, tri_valid, height=height,
+                                    width=width)
+
+
 def rasterize_tri_ids_v4_ref(vtx_pos, tris, tri_valid, *, height: int,
                              width: int, row_tile: int = 2,
                              cand_s: int = 384, cand_l: int = 128,
@@ -427,14 +551,61 @@ def rasterize_tri_ids_v4(vtx_pos, tris, tri_valid, *, height: int,
     rasterize_tri_ids_v4.launches += 1
     if err != 0:
         raise RuntimeError(f"raster_v4 launch failed: cudaError {err}")
-    # The fallback: v2 on the original order, which does the work only
-    # where v4 did not (fits is read on the device, never on the host).
+    _launch_v2_fallback(vtx_pos, tris, tri_valid, fits, out, height=height,
+                        width=width)
+    return out.reshape(height, width)
+
+
+def _launch_v2_fallback(vtx_pos, tris, tri_valid, fits, out, *, height,
+                        width):
+    """The v4 and v3 fallback: v2 with its default tiling on the original
+    order, which does the work only where the first kernel did not (fits
+    is read on the device, never on the host)."""
     C, bounds, B = v2_setup(vtx_pos, tris, tri_valid, height=height,
                             width=width, row_tile=2, tri_block=512)
-    _launch_v2(C, bounds, B, fits, out, T=T, height=height, width=width,
-               row_tile=2)
+    _launch_v2(C, bounds, B, fits, out, T=tris.shape[0], height=height,
+               width=width, row_tile=2)
+
+
+def rasterize_tri_ids_v3(vtx_pos, tris, tri_valid, *, height: int,
+                         width: int, row_tile: int = 2, tri_block: int = 128,
+                         s_blocks: int = 5, l_blocks: int = 4,
+                         long_thresh: float = 64.0):
+    """Triangle-id buffer [H, W] int32 by the v3 kernel, falling back to
+    the v2 kernel on the device when a tile needs more than s_blocks
+    short blocks or the long triangles more than l_blocks. CPU tensors
+    run the plain version."""
+    if vtx_pos.device.type == "cpu":
+        return rasterize_tri_ids_v3_ref(
+            vtx_pos, tris, tri_valid, height=height, width=width,
+            row_tile=row_tile, tri_block=tri_block, s_blocks=s_blocks,
+            l_blocks=l_blocks, long_thresh=long_thresh)
+    _check(vtx_pos, tris, tri_valid, height, width, 2)
+    _check(vtx_pos, tris, tri_valid, height, width, row_tile)
+    _check_cuda(vtx_pos, height, width, row_tile)
+    T = tris.shape[0]
+    C, lo_blk, nblk_s, long2, fits, (B, _, sb, lb) = v3_setup(
+        vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
+        tri_block=tri_block, s_blocks=s_blocks, l_blocks=l_blocks,
+        long_thresh=long_thresh)
+    fits = fits.contiguous()
+    out = torch.empty(height * width, dtype=torch.int32,
+                      device=vtx_pos.device)
+    lib = _get_lib()
+    work = work_counters(out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = lib.raster_v3_launch(
+        C.data_ptr(), T, lo_blk.data_ptr(), nblk_s.data_ptr(),
+        long2.data_ptr(), fits.data_ptr(), out.data_ptr(), height, width,
+        row_tile, B, sb, lb, work.data_ptr(), stream)
+    rasterize_tri_ids_v3.launches += 1
+    if err != 0:
+        raise RuntimeError(f"raster_v3 launch failed: cudaError {err}")
+    _launch_v2_fallback(vtx_pos, tris, tri_valid, fits, out, height=height,
+                        width=width)
     return out.reshape(height, width)
 
 
 rasterize_tri_ids_v4.launches = 0
+rasterize_tri_ids_v3.launches = 0
 rasterize_tri_ids_v2.launches = 0

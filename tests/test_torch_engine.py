@@ -15,6 +15,7 @@ slots and 4 keyframes.
   relative and coverage within 0.05.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import jax.numpy as jnp
@@ -22,12 +23,12 @@ import pytest
 import torch
 
 from flame_ros_tpu.config import FlameParams as JParams
-from flame_ros_tpu.datasets.synthetic import make_sequence as jmake_sequence
 from flame_ros_tpu.frontends.offline_runner import run_offline as jrun
 from flame_ros_tpu.geometry.camera import Pinhole as JCam
 from flame_ros_tpu.geometry.se3 import SE3 as JSE3
 from flame_ros_tpu.models.engine import Flame as JFlame
 from flame_ros_torch.config import FlameParams as TParams
+from flame_ros_torch.datasets.synthetic import make_sequence
 from flame_ros_torch.frontends.offline_runner import Frame, main
 from flame_ros_torch.frontends.offline_runner import run_offline as trun
 from flame_ros_torch.geometry.camera import Pinhole as TCam
@@ -47,7 +48,14 @@ SMALL = {"engine": {"max_features": 256, "max_keyframes": 4}}
 
 @pytest.fixture(scope="module")
 def seq():
-    return jmake_sequence(n_frames=10, cam=JCAM, motion="strafe")
+    """Ten frames rendered once, as numpy arrays, by the port's renderer
+    (the JAX package's takes ~20x longer on the CPU); the same arrays go
+    to both engines."""
+    s = make_sequence(10, TCAM, motion="strafe", device="cpu")
+    return SimpleNamespace(
+        images=s.images.numpy(), depths=s.depths.numpy(),
+        timestamps=np.asarray(s.timestamps),
+        poses=SimpleNamespace(q=s.poses.q.numpy(), t=s.poses.t.numpy()))
 
 
 def _jax_state(st):

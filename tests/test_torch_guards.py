@@ -1,7 +1,8 @@
 """Ground rules of the PyTorch port (flame_ros_torch/):
 
 - it imports nothing of JAX or of the JAX package, not even indirectly:
-  a CPU run leaves "jax" out of sys.modules (checked in a fresh
+  a CPU run of the per-frame and the windowed, deferred paths and the
+  mesh getters leaves "jax" out of sys.modules (checked in a fresh
   interpreter, since the test process itself imports JAX);
 - importing it turns TF32 off for matmul and cuDNN (the reference pins
   geometry to full f32);
@@ -28,14 +29,25 @@ import flame_ros_torch
 from flame_ros_torch.config import FlameParams
 from flame_ros_torch.datasets.synthetic import make_sequence
 from flame_ros_torch.frontends.offline_runner import (run_offline,
+                                                      run_offline_windowed,
                                                       synthetic_frames)
 from flame_ros_torch.geometry.camera import Pinhole
+from flame_ros_torch.models.engine import Flame
 cam = Pinhole(105.0, 105.0, 63.5, 47.5, 128, 96)
 params = FlameParams.from_dict({"engine": {"max_features": 128,
                                            "max_keyframes": 4}})
 seq = make_sequence(3, cam, device="cpu")
 res = run_offline(synthetic_frames(seq), cam, params, device="cpu")
 assert res.frames_processed == 3, res
+eng = Flame(128, 96, cam=cam, params=params, device="cpu",
+            deferred_triangulation=True)
+res = run_offline_windowed(synthetic_frames(seq), cam, params, window=3,
+                           engine=eng)
+assert res.frames_processed == 3, res
+eng._apply_pending_triangulation(block=True)
+eng.shutdown()
+eng.get_inverse_depth_mesh()
+eng.get_normal_map()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flame_ros_tpu"))
 print("LOADED", bad)

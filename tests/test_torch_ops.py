@@ -8,6 +8,8 @@ rewrites division by constants, PyTorch does neither; the relative term
 is ~8 ulp, for gray levels up to 255); integer and boolean outputs
 exactly.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -182,8 +184,13 @@ def _check_detection_matches_exactly(rng, letterbox):
 
 @pytest.fixture(scope="module")
 def seq():
-    """A short JAX-rendered sequence (numpy frames) shared by the tests."""
-    return jsyn.make_sequence(n_frames=4, cam=JCAM, motion="strafe")
+    """A short sequence shared by the tests, rendered once as numpy
+    arrays by the port's renderer (the JAX package's takes ~20x longer on
+    the CPU; test_render_matches holds the two renderers together)."""
+    s = tsyn.make_sequence(4, TCAM, motion="strafe", device="cpu")
+    return SimpleNamespace(
+        images=s.images.numpy(), depths=s.depths.numpy(),
+        poses=SimpleNamespace(q=s.poses.q.numpy(), t=s.poses.t.numpy()))
 
 
 def _epipolar_inputs(seq):

@@ -12,14 +12,21 @@ Phases, each printed as one line:
    (Delaunay of 2048 seeded random points, and of 1300 of them for the
    engine's density): the v4, v2 and v3 raster kernels must equal their
    plain PyTorch versions bit for bit on an unsorted, a y-sorted, an
-   engine-density, a long-triangle, a forced-fallback and an empty mesh,
-   with the device work counters showing which kernel did the work;
-   kernel, plain and bound times (CUDA events, medians);
+   engine-density, a long-triangle, a forced-fallback (v3's budgets), an
+   empty, a sliver and a multi-chunk mesh, with the device work counters
+   showing which kernel did the work; CUDA-event medians of the kernel
+   alone (one launch between two events, and back to back on the card),
+   of the wrapper and of the plain version, beside the kernel's bound;
 4. the main path: `run_offline` at VGA with the default FlameParams over
    60 frames rendered on the card — health on every frame, the v4 kernel
-   launched on every frame, the id buffer of several frames recomputed by
-   the plain version from the engine's own state (and whether v3's
-   budgets would hold there), ms/frame and accuracy;
+   launched and doing the work on every frame and v2 on none, the id
+   buffer of six frames recomputed from the engine's own state by the
+   plain v4 version (equal) and by the plain formulation `ops/raster.py::
+   rasterize_tri_ids` (equal but on the few pixels that v4's evaluation
+   order and its own split at VGA), whether v3's budgets would hold there,
+   ms/frame and accuracy; then the v4 and v2 kernels timed on those six
+   frames' inputs (kernel only and wrapper, CUDA-event medians), each
+   equal to its plain version there;
 5. the windowed streaming path at VGA, room/strafe: (a)
    `run_offline_windowed` with windows of 6 and synchronous
    triangulation over the same 60 frames, held against the JAX package's
@@ -47,11 +54,18 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "run_out", "chip_smoke")
-# H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
+# The least time of a raster kernel: the larger of its bytes (output and
+# slab, each once) over the HBM3 rate and its inside tests over the f32
+# instruction rate. The kernels are built with -fmad=false (the id buffer
+# must match the plain version bit for bit), so a multiply and an add
+# issue as two instructions: the rate is 132 SMs x 128 f32 lanes x the
+# 1.98 GHz boost clock that the data sheet's 67 TFLOP/s (an FMA counted
+# as two flops) implies, 33.5e12 instructions/s. H100 SXM data sheet.
+F32_INSTR_RATE = 132 * 128 * 1.98e9
 PEAK_BYTES = 3.35e12
-FLOPS_PER_TEST = 12      # 3 edges x (2 multiplies + 2 adds)
+# f32 instructions per inside test, the per-row term hoisted: v4 x*a + d
+# per edge (2 x 3); v2 and v3 (x*a + y*b) + c with y*b hoisted (3 x 3).
+INSTR_PER_TEST = {"v4": 6, "v2": 9, "v3": 9}
 # The JAX package on the CPU over the phase-5 (a) sequence:
 #   JAX_PLATFORMS=cpu python -m flame_ros_tpu.frontends.offline_runner \
 #       --dataset synthetic --frames 60 --resolution vga --window 6
@@ -84,12 +98,40 @@ def cuda_median_ms(fn, reps=30, warmup=3):
     return times[len(times) // 2]
 
 
+def device_ms(fn, reps=20, rounds=5):
+    """Device time per call of fn, for a kernel launch that takes the
+    host longer to issue than the card to run: `reps` calls queued behind
+    a ~1 ms sleep kernel, so the events time the card alone (the gap
+    between two back-to-back kernels included); the median of `rounds`.
+    cuda_median_ms of one launch also times the host's issue of it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    times.sort()
+    return times[len(times) // 2]
+
+
 def make_meshes(triangulate, np, H=480, W=640, n=2048, T=4096, seed=0):
     """The phase-3 meshes, padded to T triangles. At 2048 uniform points
-    (~4070 triangles) a 2-row tile has up to ~520 short candidates, over
-    v4's 384 budget, so v4 hands those frames to v2; the engine's own
-    topology is sparser (~2.6k triangles at VGA), which the 1300-point
-    meshes match."""
+    (~4070 triangles) a 2-row tile has up to ~520 short candidates (over
+    the TPU kernel's 384 budget); the engine's own topology is sparser
+    (~2.6k triangles at VGA), which the 1300-point meshes match. The
+    sliver mesh adds sub-pixel triangles (lowest ids) and two flat
+    slivers above the mesh whose -1e-3 band reaches 7.7 px and the whole
+    row beyond their bounding boxes; the multi-chunk mesh packs 740 more
+    points into rows 200-260, so a tile's v4 range spans several staging
+    chunks."""
     rng = np.random.default_rng(seed)
 
     def pad(pts, tris):
@@ -97,9 +139,35 @@ def make_meshes(triangulate, np, H=480, W=640, n=2048, T=4096, seed=0):
         tp[:len(tris)] = tris[:T]
         tv = np.zeros(T, bool)
         tv[:min(len(tris), T)] = True
-        pos = np.zeros((n, 2), np.float32)
+        pos = np.zeros((max(n, len(pts)), 2), np.float32)
         pos[:len(pts)] = pts
         return pos, tp, tv
+
+    def ccw(p, t):
+        a, b, c = (p[i].astype(np.float64) for i in t)
+        cross = (b[0] - a[0]) * (c[1] - a[1]) - (b[1] - a[1]) * (c[0] - a[0])
+        return t if cross > 0 else [t[0], t[2], t[1]]
+
+    def slivers(pts):
+        extra, front, back = [], [], []
+
+        def tri(*vs, into):
+            i = len(pts) + len(extra)
+            extra.extend(vs)
+            into.append([i, i + 1, i + 2])
+
+        for cx, cy in ((100, 100), (101, 100), (300, 200), (10, 2),
+                       (500.5, 300.5)):
+            tri((cx - 0.02, cy - 0.02), (cx + 0.03, cy - 0.01),
+                (cx, cy + 0.03), into=front)
+        tri((30, 1), (50, 1), (40, np.float32(1) + np.float32(1.3e-4)),
+            into=back)
+        tri((60, 2), (80, 2),
+            (70, np.nextafter(np.float32(2), np.float32(3))), into=back)
+        allp = np.concatenate([pts, np.asarray(extra, np.float32)])
+        tris = [ccw(allp, t) for t in front] + triangulate(pts).tolist() \
+            + [ccw(allp, t) for t in back]
+        return pad(allp, np.asarray(tris, np.int32))
 
     def ysort(mesh):
         pos, tp, tv = mesh
@@ -116,23 +184,28 @@ def make_meshes(triangulate, np, H=480, W=640, n=2048, T=4096, seed=0):
     band = sparse[(sparse[:, 1] < 215) | (sparse[:, 1] > 275)]
     empty = (np.zeros((n, 2), np.float32), np.zeros((T, 3), np.int32),
              np.zeros(T, bool))
+    dense = np.concatenate([sparse, rng.uniform(
+        [4, 200], [W - 4, 260], (740, 2)).astype(np.float32)])
     # Per case, the keyword arguments of each kernel: the forced-fallback
-    # case gives v4 and v3 budgets too small for the mesh (v3's as in
-    # tests/test_raster_pallas.py:97-107).
+    # case gives v3 budgets too small for the mesh (as in
+    # tests/test_raster_pallas.py:97-107); v4 and v2 have none.
     return {"unsorted": (base, {}), "ysorted": (ysort(base), {}),
             "engine_density": (ysort(pad(sparse, triangulate(sparse))), {}),
             "long_triangles": (pad(band, triangulate(band)), {}),
             "forced_fallback": (base, {
-                "v4": {"cand_s": 128, "long_thresh": 1000.0},
                 "v3": {"s_blocks": 1, "l_blocks": 1, "tri_block": 32}}),
-            "empty": (empty, {})}
+            "empty": (empty, {}),
+            "sliver": (slivers(sparse), {}),
+            "multi_chunk": (ysort(pad(dense, triangulate(dense))), {})}
 
 
-def bare_launch(rc, name, args, H, W, kw):
+def bare_launch(rc, name, args, H, W, kw, lib=None, rt=2):
     """A launch of the kernel alone, its inputs prepared once (for the
-    split of the wrapper's time between setup and kernel)."""
+    split of the wrapper's time between setup and kernel), from the
+    package's library or `lib`, on tiles of `rt` rows (v4, v2). fn.out
+    is its output, fn.slab_bytes the bytes of its inputs."""
     import torch
-    lib = rc._get_lib()
+    lib = lib or rc._get_lib()
     out = torch.empty(H * W, dtype=torch.int32, device=args[0].device)
     work = torch.zeros(len(rc.WORK_SLOTS), dtype=torch.int32,
                        device=args[0].device)
@@ -141,7 +214,7 @@ def bare_launch(rc, name, args, H, W, kw):
     if name == "v3":
         C, lo_blk, nblk_s, long2, fits, (B, _, sb, lb) = rc.v3_setup(
             *args, height=H, row_tile=2, **{**V3_DEFAULTS, **kw})
-        keep = (C, lo_blk, nblk_s, long2, fits, out, work)
+        keep = (C, lo_blk, nblk_s, long2, fits)
 
         def fn():
             lib.raster_v3_launch(C.data_ptr(), T, lo_blk.data_ptr(),
@@ -149,34 +222,35 @@ def bare_launch(rc, name, args, H, W, kw):
                                  fits.data_ptr(), out.data_ptr(), H, W, 2,
                                  B, sb, lb, work.data_ptr(), stream)
     elif name == "v4":
-        cs, cl = min(kw.get("cand_s", 384), T), min(128, T)
-        M, lo_pos, _, counts, fits = rc.v4_setup(
-            *args, height=H, row_tile=2, cand_s=kw.get("cand_s", 384),
-            cand_l=128, long_thresh=kw.get("long_thresh", 48.0))
-        keep = (M, lo_pos, counts, fits, out, work)
+        C, lo_pos, hi_pos, counts = rc.v4_setup(
+            *args, height=H, row_tile=rt,
+            long_thresh=kw.get("long_thresh", 48.0))
+        keep = (C, lo_pos, hi_pos, counts)
 
         def fn():
-            lib.raster_v4_launch(M.data_ptr(), T, lo_pos.data_ptr(),
-                                 counts.data_ptr(), fits.data_ptr(),
-                                 out.data_ptr(), H, W, 2, cs, cl,
-                                 work.data_ptr(), stream)
+            lib.raster_v4_launch(C.data_ptr(), T, lo_pos.data_ptr(),
+                                 hi_pos.data_ptr(), counts.data_ptr(),
+                                 out.data_ptr(), H, W, rt, work.data_ptr(),
+                                 stream)
     else:
-        C, bounds, B = rc.v2_setup(*args, height=H, width=W, row_tile=2,
+        C, bounds, B = rc.v2_setup(*args, height=H, width=W, row_tile=rt,
                                    tri_block=512)
-        keep = (C, bounds, out, work)
+        keep = (C, bounds)
 
         def fn():
             lib.raster_v2_launch(C.data_ptr(), T, bounds.data_ptr(), B,
-                                 None, out.data_ptr(), H, W, 2,
+                                 None, out.data_ptr(), H, W, rt,
                                  work.data_ptr(), stream)
     fn.keep = keep
+    fn.out = out.reshape(H, W)
+    fn.slab_bytes = sum(t.numel() * t.element_size() for t in keep)
     return fn
 
 
-def needed_tests(torch, pos, tris, tv, H, W, rt=2):
-    """Candidate tests the id buffer needs on this data: per tile of rt
-    rows, the valid triangles whose y-range overlaps it, times its
-    pixels."""
+def y_overlap_tests(torch, pos, tris, tv, H, W, rt=2):
+    """The inside tests of a kernel that culls in y only (the measure
+    the bound once used): per tile of rt rows, the valid triangles whose
+    y-range overlaps it, times its pixels."""
     t = tris.long()
     ys = torch.stack([pos[t[:, k], 1] for k in range(3)], -1)
     ymin = torch.sort(ys.min(-1).values[tv]).values
@@ -187,14 +261,64 @@ def needed_tests(torch, pos, tris, tv, H, W, rt=2):
     return int(n.sum()) * rt * W
 
 
+def bbox_pairs(torch, pos, tris, tv, H, W):
+    """The inside tests the id buffer needs on this data: the (pixel,
+    valid triangle) pairs whose pixel lies in the triangle's bounding
+    box."""
+    t = tris.long()[tv]
+    p = pos[t]                                   # [n, 3, 2]
+    lo = torch.ceil(p.min(1).values).clamp(min=0)
+    hi = torch.floor(p.max(1).values)
+    hi = torch.minimum(hi, torch.tensor([W - 1.0, H - 1.0],
+                                        device=pos.device))
+    n = (hi - lo + 1).clamp(min=0)
+    return int((n[:, 0] * n[:, 1]).sum())
+
+
+def order_split(torch, rc, pos, tris, ids_v4, ids_plain):
+    """Pixels where the v4 id buffer and the plain formulation's differ,
+    and whether each is explained by their evaluation orders alone: v4's
+    answer passes the inside test in v4's order x*a + (y*b + c), the
+    plain formulation's passes in its order (x*a + y*b) + c, and one of
+    the two triangles passes in one order and fails in the other (a
+    pixel within rounding of the -1e-3 band of an edge)."""
+    px = (ids_v4 != ids_plain).nonzero()
+    if not len(px):
+        return 0, True
+    y = px[:, 0].to(torch.float32)[:, None]
+    x = px[:, 1].to(torch.float32)[:, None]
+
+    def inside(ids, v4_order):
+        t = tris[ids.clamp(min=0).long()].long()
+        c = [pos[t[:, k]] for k in range(3)]
+        ok = ids >= 0
+        for p0, p1 in ((c[0], c[1]), (c[1], c[2]), (c[2], c[0])):
+            a, b, cc = rc.edge_coeffs(p0, p1)
+            a, b, cc = a[:, None], b[:, None], cc[:, None]
+            e = x * a + (y * b + cc) if v4_order else (x * a + y * b) + cc
+            ok = ok & (e[:, 0] >= rc.EPS)
+        return ok
+
+    a = ids_v4[px[:, 0], px[:, 1]]
+    b = ids_plain[px[:, 0], px[:, 1]]
+    a4, a2, b4, b2 = (inside(i, o) for i in (a, b) for o in (True, False))
+    explained = ((a4 | (a < 0)) & (b2 | (b < 0))
+                 & ((a4 != a2) | (b4 != b2)))
+    return len(px), bool(explained.all())
+
+
 def drive_main_path(engine, seq, out_dir):
     """run_offline over `seq` with `engine`. Times each frame on the host
     clock from its start to the end of its stats read (a device sync);
-    after each non-poseframe, recomputes that frame's id buffer with the
-    plain v4 version from the engine's own state and checks equality,
-    and records whether v3's budgets would hold on that frame's mesh.
-    Returns (RunResult, ms per frame, checked frame ids, v3 fits per
-    checked frame, telemetry)."""
+    after six non-poseframes spread over the run, recomputes that frame's id
+    buffer from the engine's own state with the plain v4 version, which
+    must equal it, and with the plain formulation `ops/raster.py::
+    rasterize_tri_ids`, which may differ only on pixels that the two
+    evaluation orders split (order_split); records whether v3's budgets
+    would hold on that frame's mesh, and keeps the raster's inputs.
+    Returns (RunResult, ms per frame, checked frame ids, pixels that
+    differ from the plain formulation per checked frame, v3 fits per
+    checked frame, raster inputs per checked frame, telemetry)."""
     import numpy as np
     import torch
     from flame_ros_torch.frontends.offline_runner import (run_offline,
@@ -204,27 +328,36 @@ def drive_main_path(engine, seq, out_dir):
     from flame_ros_torch.ops import raster_cuda as rc
     cam = engine.cam
     pf_every = engine.params.input.poseframe_subsample_factor
-    starts, ends, checked, v3_fits = [], [], [], []
+    starts, ends, checked, v3_fits, inputs, split = [], [], [], [], [], []
 
     def frames():
         for i, f in enumerate(synthetic_frames(seq)):
             if i:
                 ends.append(time.perf_counter())
             # After a non-poseframe the state still holds the inputs of
-            # that frame's raster (no topology install since).
-            if i >= 2 and (i - 1) % pf_every != 0 and len(checked) < 6:
+            # that frame's raster (no topology install since). Frames 7,
+            # 17, ..., 57: the mesh exists from the second poseframe on.
+            if (i - 1) % 10 == 7 and (i - 1) % pf_every != 0:
                 st = engine.state
                 tri_fresh, _, _ = _smooth_pd_setup(st, params=engine.params)
                 _, pvalid = raster_ops.triangle_planes(
                     st.vtx_uv, st.vtx_x, st.tris, tri_fresh)
-                plain = rc.rasterize_tri_ids_v4_ref(
-                    st.vtx_uv, st.tris, pvalid, height=cam.height,
-                    width=cam.width)
-                if not torch.equal(plain, st.last_idmap):
+                args = (st.vtx_uv, st.tris, pvalid)
+                kw = dict(height=cam.height, width=cam.width)
+                if not torch.equal(rc.rasterize_tri_ids_v4_ref(*args, **kw),
+                                   st.last_idmap):
+                    raise AssertionError(f"frame {i - 1}: main-path id "
+                                         "buffer differs from plain v4")
+                n_px, explained = order_split(
+                    torch, rc, st.vtx_uv, st.tris, st.last_idmap,
+                    raster_ops.rasterize_tri_ids(*args, **kw))
+                if not explained:
                     raise AssertionError(
-                        f"frame {i - 1}: main-path id buffer differs from "
-                        "the plain version")
+                        f"frame {i - 1}: the id buffer differs from the "
+                        "plain formulation beyond evaluation order")
+                split.append(n_px)
                 checked.append(i - 1)
+                inputs.append((st.vtx_uv.clone(), st.tris.clone(), pvalid))
                 *_, fits, _ = rc.v3_setup(
                     st.vtx_uv, st.tris, pvalid, height=cam.height,
                     row_tile=2, **V3_DEFAULTS)
@@ -238,7 +371,7 @@ def drive_main_path(engine, seq, out_dir):
     with open(os.path.join(out_dir, "telemetry.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     ms = (np.asarray(ends) - np.asarray(starts)) * 1e3
-    return res, ms, checked, v3_fits, recs
+    return res, ms, checked, split, v3_fits, inputs, recs
 
 
 def launch_counts(rc, dev):
@@ -312,8 +445,11 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+    max_sm_clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
     kind = torch.cuda.get_device_name(0)
-    phase("environment", card=smi, kind=kind,
+    phase("environment", card=smi, kind=kind, max_sm_clock=max_sm_clock,
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, python=sys.version.split()[0],
           tf32_matmul=False, tf32_cudnn=False)
@@ -340,22 +476,17 @@ def main():
     max_err = {n: 0 for n in names}
     for case, ((pos, tp, tv), kws) in meshes.items():
         args = [torch.from_numpy(a).to(dev) for a in (pos, tp, tv)]
-        kw4, kw3 = kws.get("v4", {}), kws.get("v3", {})
-        *_, fits4 = rc.v4_setup(*args, height=H, row_tile=2,
-                                cand_s=kw4.get("cand_s", 384), cand_l=128,
-                                long_thresh=kw4.get("long_thresh", 48.0))
-        fits3 = rc.v3_setup(*args, height=H, row_tile=2,
-                            **{**V3_DEFAULTS, **kw3})[4]
-        fits = {"v4": bool(fits4), "v2": None, "v3": bool(fits3)}
-        if case in ("engine_density", "long_triangles"):
-            assert fits["v4"], f"v4 budgets must hold on {case}"
+        fits3 = bool(rc.v3_setup(*args, height=H, row_tile=2,
+                                 **{**V3_DEFAULTS, **kws.get("v3", {})})[4])
         if case == "forced_fallback":
-            assert not fits["v4"] and not fits["v3"], fits
-        tests = needed_tests(torch, *args, H, W)
-        nbytes = (args[0].numel() * 4 + args[1].numel() * 4
-                  + args[2].numel() + H * W * 4)
-        b_ops = tests * FLOPS_PER_TEST / PEAK_F32_FLOPS * 1e3
-        b_bytes = nbytes / PEAK_BYTES * 1e3
+            assert not fits3
+        _, lo_pos, hi_pos, counts = rc.v4_setup(*args, height=H, row_tile=2,
+                                                long_thresh=48.0)
+        n_short, n_live = counts.tolist()
+        v4_range = int((hi_pos - lo_pos).max()) + n_live - n_short
+        if case == "multi_chunk":
+            assert v4_range > 2 * rc.STAGE_CHUNK, v4_range
+        pairs = bbox_pairs(torch, *args, H, W)
         for name in names:
             kern, ref = funcs[name]
             kk = kws.get(name, {})
@@ -372,21 +503,30 @@ def main():
                     f"{name} kernel != plain on {case}: "
                     f"{int((out != plain).sum())} pixels differ")
             # The kernel that did the work: the one called, or v2 where
-            # the budgets did not hold.
+            # v3's budgets did not hold.
             expect = [0] * len(rc.WORK_SLOTS)
-            expect[rc.WORK_SLOTS.index(name if fits[name] in (None, True)
-                                       else "v2")] = 1
+            expect[rc.WORK_SLOTS.index(
+                "v2" if name == "v3" and not fits3 else name)] = 1
             assert work == expect, (case, name, work, expect)
             ms = cuda_median_ms(lambda: kern(*args, height=H, width=W, **kk))
-            kernel_ms = cuda_median_ms(bare_launch(rc, name, args, H, W, kk))
+            bare = bare_launch(rc, name, args, H, W, kk)
+            kernel_ms = cuda_median_ms(bare)
+            kernel_dev_ms = device_ms(bare)
             plain_ms = cuda_median_ms(
                 lambda: ref(*args, height=H, width=W, **kk), reps=5,
                 warmup=1)
+            b_ops = pairs * INSTR_PER_TEST[name] / F32_INSTR_RATE * 1e3
+            b_bytes = (bare.slab_bytes + H * W * 4) / PEAK_BYTES * 1e3
             rows[name][case] = dict(
-                ms=ms, kernel_only_ms=kernel_ms, plain_ms=plain_ms,
+                ms=ms, kernel_only_ms=kernel_ms,
+                kernel_device_ms=kernel_dev_ms, plain_ms=plain_ms,
                 bound_ms=max(b_ops, b_bytes),
                 bound_by="operations" if b_ops >= b_bytes else "bytes",
-                candidate_tests=tests, fits=fits[name], work=work,
+                bound_ops_ms=b_ops, bound_bytes_ms=b_bytes,
+                bbox_pairs=pairs,
+                candidate_tests=y_overlap_tests(torch, *args, H, W),
+                v4_max_tile_range=v4_range,
+                fits=fits3 if name == "v3" else None, work=work,
                 covered=float((out >= 0).float().mean()))
             phase("kernel", kernel=name, case=case, equal=True,
                   **rows[name][case])
@@ -403,13 +543,34 @@ def main():
     assert engine.params.engine.use_pallas_raster is True
     assert engine.params.engine.pallas_raster_kernel == "v4"
     rc.reset_counters()
-    res, ms, checked, v3_fits, recs = drive_main_path(engine, seq, OUT)
+    res, ms, checked, split, v3_fits, inputs, recs = drive_main_path(
+        engine, seq, OUT)
     launches, work = launch_counts(rc, dev)
     assert res.frames_processed == n_frames and res.frames_failed == 0
     health = [r["health"] for r in recs]
     assert len(health) == n_frames and all(h == 1.0 for h in health), health
     assert launches["v4"] >= n_frames, launches
-    assert len(checked) >= 3, checked
+    assert launches["v2"] == 0 and launches["v3"] == 0, launches
+    assert work == {"v4": launches["v4"], "v2": 0, "v3": 0}, work
+    assert len(checked) == 6, checked
+    # The v4 and v2 kernels on the checked frames' inputs: each equal to
+    # its plain version; kernel-only (one launch, and back to back on the
+    # card) and wrapper medians per frame.
+    frame_ms = {"v4": [], "v2": []}
+    for args in inputs:
+        for name in frame_ms:
+            kern, ref = funcs[name]
+            out = kern(*args, height=H, width=W)
+            if not torch.equal(out, ref(*args, height=H, width=W)):
+                raise AssertionError(f"{name} kernel != plain on a "
+                                     "main-path frame")
+            bare = bare_launch(rc, name, args, H, W, {})
+            frame_ms[name].append({
+                "kernel_only_ms": cuda_median_ms(bare),
+                "kernel_device_ms": device_ms(bare),
+                "ms": cuda_median_ms(
+                    lambda: kern(*args, height=H, width=W)),
+                "bbox_pairs": bbox_pairs(torch, *args, H, W)})
     assert np.isfinite(res.mean_rmse) and res.mean_rmse < 0.1, res
     assert res.final_coverage > 0.3, res
     steady = ms[5:]
@@ -422,7 +583,9 @@ def main():
           mean_recall=res.mean_recall, final_coverage=res.final_coverage,
           final_abs_rel=res.final_abs_rel, final_delta1=res.final_delta1,
           launches=launches, work=work, idmap_checked_frames=checked,
+          idmap_order_split_px=split,
           v3_fits_checked_frames=v3_fits,
+          checked_frame_times=frame_ms,
           num_tris_last=recs[-1]["num_tris"])
 
     # 5. the windowed streaming path -----------------------------------
@@ -442,6 +605,8 @@ def main():
     assert res_a.frames_processed == n_frames and res_a.frames_failed == 0
     assert health_a == [1.0] * n_frames, health_a
     assert launches_a["v4"] >= n_frames, launches_a
+    assert launches_a["v2"] == 0 and launches_a["v3"] == 0, launches_a
+    assert work_a == {"v4": launches_a["v4"], "v2": 0, "v3": 0}, work_a
     ref = JAX_WINDOWED_VGA
     band = {"rmse_rel_diff": abs(res_a.mean_rmse - ref["idepth_rmse"])
             / ref["idepth_rmse"],
@@ -471,6 +636,8 @@ def main():
     assert len(health_b) == n_b and all(h == 1.0 for h in health_b)
     assert eng_b.num_failed_frames == 0
     assert launches_b["v4"] >= n_b, launches_b
+    assert launches_b["v2"] == 0 and launches_b["v3"] == 0, launches_b
+    assert work_b == {"v4": launches_b["v4"], "v2": 0, "v3": 0}, work_b
     covs = [rs[-1]["coverage"] for rs in wrows]
     cov_steady = covs[4:]               # after the map build-up
     assert max(cov_steady) > 0.4, covs

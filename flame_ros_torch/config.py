@@ -230,9 +230,9 @@ class EngineParams:
     # construction (FlameParams.resolved).
     use_pallas_raster: bool | None = None
     # Which hand-written raster kernel runs when use_pallas_raster
-    # resolves True: "v4" (exact per-tile candidate lists from a device
-    # sort; falls back to v2 on the device when a frame's geometry exceeds
-    # the candidate budgets) or "v2" (per-tile triangle-block ranges).
+    # resolves True: "v4" (exact per-tile candidate lists of any length
+    # from a device sort; it has no budget and no fallback) or "v2"
+    # (per-tile triangle-block ranges in original order).
     # "v3" runs v2, as in the JAX package, whose dispatch never reaches
     # its v3 kernel.
     pallas_raster_kernel: str = "v4"
@@ -376,8 +376,8 @@ class FlameParams:
     def resolved(self, device) -> "FlameParams":
         """Resolve auto (None) knobs for a torch device ("cuda" or "cpu").
 
-        On "cuda" the hand-written raster kernel is on (v4, with its v2
-        fallback); on "cpu" the plain raster runs. The NLTGV2 adjoint is
+        On "cuda" the hand-written raster kernel is on (v4); on "cpu"
+        the plain raster runs. The NLTGV2 adjoint is
         the exact f32 incidence gather on both. The JAX package's
         "matmul" adjoint (bf16 incidence matmul for the TPU's matrix
         unit) is not part of this package and is rejected."""

@@ -105,10 +105,10 @@ def rasterize_ids(vtx_pos, vtx_x, tris, tri_valid, *, height: int,
     per-frame raster products; the dense idepth evaluation is deferred
     (idepth_from_ids / sample_idepth_at).
 
-    use_kernel=True runs the hand-written raster: "v4" (with its v2
-    fallback on the device), any other name v2, as the JAX package's
-    dispatch does (its v3 is reached only by direct calls): the CUDA
-    kernels on CUDA tensors, their plain versions on CPU tensors."""
+    use_kernel=True runs the hand-written raster: "v4", any other name
+    v2, as the JAX package's dispatch does (its v3 is reached only by
+    direct calls): the CUDA kernels on CUDA tensors, their plain versions
+    on CPU tensors."""
     planes, pvalid = triangle_planes(vtx_pos, vtx_x, tris, tri_valid)
     if use_kernel and kernel == "v4":
         idmap = raster_cuda.rasterize_tri_ids_v4(

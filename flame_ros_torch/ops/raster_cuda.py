@@ -4,21 +4,26 @@ plain PyTorch versions.
 Counterpart of `flame_ros_tpu/ops/raster_pallas.py`:
 
 - `rasterize_tri_ids_v4` replaces `rasterize_tri_ids_pallas_v4`
-  (raster_pallas.py:350-482): device sort by (class, ymin), exact
-  per-tile candidate ranges, and an in-graph fallback to v2 when a
-  frame's geometry exceeds the candidate budgets;
+  (raster_pallas.py:350-482): device sort by (class, ymin), then per
+  tile the exact short-triangle range and the shared long range, walked
+  whatever their length. The TPU kernel's candidate budgets (a static
+  VMEM slab) and its fallback to v2 have no counterpart: both branches
+  of its `lax.cond` compute the same id buffer;
 - `rasterize_tri_ids_v3` replaces `rasterize_tri_ids_pallas_v3`
   (raster_pallas.py:180-315): the same device sort, then per tile at
   most `s_blocks` blocks of short triangles and `l_blocks` shared blocks
-  of long ones, with the same fallback to v2. No engine path reaches it,
-  as in the JAX package (`pallas_raster_kernel="v3"` runs v2);
+  of long ones, with a fallback to v2 when they do not hold. No engine
+  path reaches it, as in the JAX package (`pallas_raster_kernel="v3"`
+  runs v2);
 - `rasterize_tri_ids_v2` replaces `rasterize_tri_ids_pallas`
   (raster_pallas.py:27-147): per-tile contiguous triangle-block ranges.
 
 The kernels are in `csrc/raster.cu` (its header note says what bounds
-them on the card and how the design answers it). They are compiled with
-nvcc at first use into `csrc/build/` and loaded with ctypes; the build is
-redone when the source's content hash changes.
+them on the card and how the design answers it: v4 and v2 stage their
+candidates in chunks of `STAGE_CHUNK` and cull them against the block's
+and each warp's pixels before testing). They are compiled with nvcc at
+first use into `csrc/build/` and loaded with ctypes; the build is redone
+when the source's content hash changes.
 
 Each wrapper runs its plain version (`*_ref`) when given CPU tensors and
 launches its kernel when given CUDA tensors; a CUDA tensor never falls
@@ -28,8 +33,8 @@ bit for bit.
 
 Launch counts: each wrapper has a `launches` integer that counts its
 kernel launches. The kernels also count, in a small device tensor
-(`work_counters`), the launches that did the work — the v4 -> v2 and
-v3 -> v2 fallbacks launch both kernels and exactly one of them works.
+(`work_counters`), the launches that did the work — the v3 -> v2
+fallback launches both kernels and exactly one of them works.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 OFF = 1e7          # class offset of the v4 sort key
 EPS = -1e-3        # inside-test tolerance of the edge functions
+STAGE_CHUNK = 256  # candidates v4 and v2 stage per pass (CH in raster.cu)
 
 _lock = threading.Lock()
 _lib = None
@@ -96,22 +102,27 @@ def build(force: bool = False) -> str:
     return _SO
 
 
+def load(path: str):
+    """The kernel library at `path` with its launch functions typed."""
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.raster_v4_launch.restype = ci
+    lib.raster_v4_launch.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci, vp,
+                                     vp]
+    lib.raster_v2_launch.restype = ci
+    lib.raster_v2_launch.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci, ci, vp,
+                                     vp]
+    lib.raster_v3_launch.restype = ci
+    lib.raster_v3_launch.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, ci, ci,
+                                     ci, ci, ci, vp, vp]
+    return lib
+
+
 def _get_lib():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.raster_v4_launch.restype = ci
-            lib.raster_v4_launch.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci,
-                                             ci, ci, ci, vp, vp]
-            lib.raster_v2_launch.restype = ci
-            lib.raster_v2_launch.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci,
-                                             ci, vp, vp]
-            lib.raster_v3_launch.restype = ci
-            lib.raster_v3_launch.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci,
-                                             ci, ci, ci, ci, ci, vp, vp]
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 
@@ -183,10 +194,11 @@ def _class_sort(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
     invalid one; f32 keys, a stable sort (jnp.argsort is stable), and
     left-side searchsorted as jnp.searchsorted.
 
-    Returns (corners (a, b, c), perm [T], n_short [] int32, n_live []
-    int32, lo_pos [n_tiles] int32, hi_pos [n_tiles] int32): the sorted
-    positions of the short triangles that may overlap each tile of
-    `row_tile` rows are [lo_pos, hi_pos)."""
+    Returns (C [11, T] sorted slab = 9 edge coefficients, validity and
+    original id as f32; n_short [] int32, n_live [] int32, lo_pos
+    [n_tiles] int32, hi_pos [n_tiles] int32): the sorted positions of the
+    short triangles that may overlap each tile of `row_tile` rows are
+    [lo_pos, hi_pos), those of the long ones [n_short, n_live)."""
     dev = vtx_pos.device
     a, b, c = _corners(vtx_pos, tris)
     ys = torch.stack([a[:, 1], b[:, 1], c[:, 1]], -1)
@@ -210,30 +222,27 @@ def _class_sort(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
     hi_pos = torch.minimum(
         torch.searchsorted(key_s, tile_y0 + row_tile).to(torch.int32),
         n_short)
-    return (a, b, c), perm, n_short, n_live, lo_pos, hi_pos
+    # Columns in sorted order; the last row holds each column's original
+    # id (the permutation itself).
+    C = torch.cat([
+        torch.cat([edge_coeffs(a, b), edge_coeffs(b, c), edge_coeffs(c, a),
+                   tri_valid.to(torch.float32)[None, :]], 0)[:, perm],
+        perm.to(torch.float32)[None, :]], 0).contiguous()
+    return C, n_short, n_live, lo_pos, hi_pos
 
 
 def v4_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
-             cand_s: int, cand_l: int, long_thresh: float):
-    """The v4 wrapper's device-side preparation (raster_pallas.py:397-438).
+             long_thresh: float):
+    """The v4 wrapper's device-side preparation (raster_pallas.py:397-438,
+    without the budgets).
 
-    Returns (M [12, T] sorted slab, lo_pos [n_tiles] int32, hi_pos
-    [n_tiles] int32, counts [2] int32 = (n_short, n_long), fits [] bool)."""
-    T = tris.shape[0]
-    dev = vtx_pos.device
-    (a, b, c), perm, n_short, n_live, lo_pos, hi_pos = _class_sort(
+    Returns (C [11, T] sorted slab, lo_pos [n_tiles] int32, hi_pos
+    [n_tiles] int32, counts [2] int32 = (n_short, n_live))."""
+    C, n_short, n_live, lo_pos, hi_pos = _class_sort(
         vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
         long_thresh=long_thresh)
-    M = torch.cat([
-        edge_coeffs(a, b), edge_coeffs(b, c), edge_coeffs(c, a),
-        tri_valid.to(torch.float32)[None, :],
-        torch.arange(T, dtype=torch.float32, device=dev)[None, :],
-        torch.zeros((1, T), dtype=torch.float32, device=dev),
-    ], 0)[:, perm].contiguous()
-    n_long = n_live - n_short
-    fits = (torch.max(hi_pos - lo_pos) <= cand_s) & (n_long <= cand_l)
-    counts = torch.stack([n_short, n_long]).contiguous()
-    return M, lo_pos.contiguous(), hi_pos, counts, fits
+    counts = torch.stack([n_short, n_live])
+    return C, lo_pos, hi_pos, counts
 
 
 def v3_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
@@ -252,15 +261,9 @@ def v3_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
     if T % B:
         B = T
     n_blocks = T // B
-    (a, b, c), perm, n_short, n_live, lo_pos, hi_pos = _class_sort(
+    C, n_short, n_live, lo_pos, hi_pos = _class_sort(
         vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
         long_thresh=long_thresh)
-    # Columns in sorted order; the last row holds each column's original
-    # id (the permutation itself).
-    C = torch.cat([
-        torch.cat([edge_coeffs(a, b), edge_coeffs(b, c), edge_coeffs(c, a),
-                   tri_valid.to(torch.float32)[None, :]], 0)[:, perm],
-        perm.to(torch.float32)[None, :]], 0).contiguous()
     lo_blk = torch.div(lo_pos, B, rounding_mode="floor")
     nblk_s = torch.clamp(torch.div(hi_pos + B - 1, B, rounding_mode="floor")
                          - lo_blk, min=0).to(torch.int32)
@@ -319,24 +322,26 @@ def v2_setup(vtx_pos, tris, tri_valid, *, height: int, width: int,
 # Plain PyTorch versions (CPU path; the oracle for the kernels)
 # ---------------------------------------------------------------------------
 
-def _v4_eval(M, lo_pos, counts, *, T, height, width, row_tile, cand_s,
-             cand_l):
+def _v4_eval(C, lo_pos, hi_pos, counts, *, T, height, width, row_tile):
     """Plain v4 evaluation given the setup; [H, W] int32 with -1 uncovered
-    (the kernel's arithmetic: x*a + (y*b + c), min over original ids)."""
-    dev = M.device
-    cs = min(cand_s, T)
-    cl = min(cand_l, T)
-    n_short, n_long = counts[0], counts[1]
+    (the kernel's arithmetic: x*a + (y*b + c), min over original ids).
+    Each tile tests its whole short range [lo_pos, hi_pos) and the whole
+    long range [n_short, n_live), padded to the longest short range with
+    columns masked invalid."""
+    dev = C.device
     n_tiles = height // row_tile
-    idx = torch.clamp(lo_pos[:, None].long()
-                      + torch.arange(cs, device=dev)[None, :], 0, T - 1)
-    G = M[:11, idx].permute(1, 0, 2)                   # [n_tiles, 11, cs]
-    lidx = torch.clamp(n_short.long() + torch.arange(cl, device=dev),
-                       0, T - 1)
-    lvalid = (torch.arange(cl, device=dev) < n_long).to(torch.float32)
-    L = M[:11, lidx].clone()
-    L[9] = L[9] * lvalid                               # [11, cl]
-    S = torch.cat([G, L[None].expand(n_tiles, 11, cl)], 2)  # [nt, 11, nc]
+    n_short, n_live = counts.tolist()
+    n_s = torch.clamp(hi_pos - lo_pos, min=0).long()       # [n_tiles]
+    cs = int(n_s.max())
+    if cs + n_live - n_short <= 0:
+        return torch.full((height, width), -1, dtype=torch.int32,
+                          device=dev)
+    k = torch.arange(cs, device=dev)[None, :]
+    idx = torch.clamp(lo_pos[:, None].long() + k, 0, T - 1)
+    G = C[:, idx].permute(1, 0, 2).clone()             # [n_tiles, 11, cs]
+    G[:, 9] = G[:, 9] * (k < n_s[:, None]).to(torch.float32)
+    L = C[:, n_short:n_live]                           # [11, n_long]
+    S = torch.cat([G, L[None].expand(n_tiles, *L.shape)], 2)  # [nt, 11, nc]
     big = float(T + 1)
     ux = torch.arange(width, dtype=torch.float32, device=dev)[None, :, None]
     rows = []
@@ -454,30 +459,30 @@ def rasterize_tri_ids_v3_ref(vtx_pos, tris, tri_valid, *, height: int,
 
 def rasterize_tri_ids_v4_ref(vtx_pos, tris, tri_valid, *, height: int,
                              width: int, row_tile: int = 2,
-                             cand_s: int = 384, cand_l: int = 128,
                              long_thresh: float = 48.0):
-    """Plain PyTorch version of the v4 kernel, with its v2 fallback."""
+    """Plain PyTorch version of the v4 kernel: exact candidate ranges,
+    no budget, no fallback."""
     _check(vtx_pos, tris, tri_valid, height, width, row_tile)
-    T = tris.shape[0]
-    M, lo_pos, _, counts, fits = v4_setup(
+    C, lo_pos, hi_pos, counts = v4_setup(
         vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
-        cand_s=cand_s, cand_l=cand_l, long_thresh=long_thresh)
-    if bool(fits):
-        return _v4_eval(M, lo_pos, counts, T=T, height=height, width=width,
-                        row_tile=row_tile, cand_s=cand_s, cand_l=cand_l)
-    return rasterize_tri_ids_v2_ref(vtx_pos, tris, tri_valid, height=height,
-                                    width=width)
+        long_thresh=long_thresh)
+    return _v4_eval(C, lo_pos, hi_pos, counts, T=tris.shape[0],
+                    height=height, width=width, row_tile=row_tile)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _launch_v2(C, bounds, B, skip_if, out, *, T, height, width, row_tile):
-    lib = _get_lib()
-    for name, t in (("C", C), ("bounds", bounds), ("out", out)):
+def _contiguous(**tensors):
+    for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_v2(C, bounds, B, skip_if, out, *, T, height, width, row_tile):
+    lib = _get_lib()
+    _contiguous(C=C, bounds=bounds, out=out)
     work = work_counters(out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     err = lib.raster_v2_launch(
@@ -489,10 +494,16 @@ def _launch_v2(C, bounds, B, skip_if, out, *, T, height, width, row_tile):
         raise RuntimeError(f"raster_v2 launch failed: cudaError {err}")
 
 
-def _check_cuda(vtx_pos, height, width, row_tile):
-    if row_tile * width > 1024 * 4:
-        raise ValueError(f"tile of {row_tile}x{width} pixels exceeds the "
-                         "kernel's 4096 pixels per block")
+def _check_cuda(vtx_pos, height, width, row_tile, *, v3=False):
+    # Threads per block: v3 one per 4 pixels of the tile; v4 and v2 one
+    # warp per 2 rows x 64 pixels. At most 1024 either way.
+    if v3:
+        threads = -(-row_tile * width // 4)
+    else:
+        threads = 32 * -(-row_tile // 2) * -(-width // 64)
+    if threads > 1024:
+        raise ValueError(f"tile of {row_tile}x{width} pixels needs "
+                         f"{threads} threads a block, over 1024")
     if vtx_pos.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got {vtx_pos.device}")
 
@@ -520,51 +531,33 @@ def rasterize_tri_ids_v2(vtx_pos, tris, tri_valid, *, height: int,
 
 
 def rasterize_tri_ids_v4(vtx_pos, tris, tri_valid, *, height: int,
-                         width: int, row_tile: int = 2, cand_s: int = 384,
-                         cand_l: int = 128, long_thresh: float = 48.0):
-    """Triangle-id buffer [H, W] int32 by the v4 kernel, falling back to
-    the v2 kernel on the device when the geometry exceeds the candidate
-    budgets. CPU tensors run the plain version."""
+                         width: int, row_tile: int = 2,
+                         long_thresh: float = 48.0):
+    """Triangle-id buffer [H, W] int32 by the v4 kernel (exact per-tile
+    candidate ranges of any length). CPU tensors run the plain version."""
     if vtx_pos.device.type == "cpu":
         return rasterize_tri_ids_v4_ref(
             vtx_pos, tris, tri_valid, height=height, width=width,
-            row_tile=row_tile, cand_s=cand_s, cand_l=cand_l,
-            long_thresh=long_thresh)
-    _check(vtx_pos, tris, tri_valid, height, width, 2)
+            row_tile=row_tile, long_thresh=long_thresh)
     _check(vtx_pos, tris, tri_valid, height, width, row_tile)
     _check_cuda(vtx_pos, height, width, row_tile)
-    T = tris.shape[0]
-    cs, cl = min(cand_s, T), min(cand_l, T)
-    M, lo_pos, _, counts, fits = v4_setup(
+    C, lo_pos, hi_pos, counts = v4_setup(
         vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
-        cand_s=cand_s, cand_l=cand_l, long_thresh=long_thresh)
-    fits = fits.contiguous()
+        long_thresh=long_thresh)
     out = torch.empty(height * width, dtype=torch.int32,
                       device=vtx_pos.device)
+    _contiguous(C=C, lo_pos=lo_pos, hi_pos=hi_pos, counts=counts)
     lib = _get_lib()
     work = work_counters(out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     err = lib.raster_v4_launch(
-        M.data_ptr(), T, lo_pos.data_ptr(), counts.data_ptr(),
-        fits.data_ptr(), out.data_ptr(), height, width, row_tile, cs, cl,
+        C.data_ptr(), tris.shape[0], lo_pos.data_ptr(), hi_pos.data_ptr(),
+        counts.data_ptr(), out.data_ptr(), height, width, row_tile,
         work.data_ptr(), stream)
     rasterize_tri_ids_v4.launches += 1
     if err != 0:
         raise RuntimeError(f"raster_v4 launch failed: cudaError {err}")
-    _launch_v2_fallback(vtx_pos, tris, tri_valid, fits, out, height=height,
-                        width=width)
     return out.reshape(height, width)
-
-
-def _launch_v2_fallback(vtx_pos, tris, tri_valid, fits, out, *, height,
-                        width):
-    """The v4 and v3 fallback: v2 with its default tiling on the original
-    order, which does the work only where the first kernel did not (fits
-    is read on the device, never on the host)."""
-    C, bounds, B = v2_setup(vtx_pos, tris, tri_valid, height=height,
-                            width=width, row_tile=2, tri_block=512)
-    _launch_v2(C, bounds, B, fits, out, T=tris.shape[0], height=height,
-               width=width, row_tile=2)
 
 
 def rasterize_tri_ids_v3(vtx_pos, tris, tri_valid, *, height: int,
@@ -582,7 +575,8 @@ def rasterize_tri_ids_v3(vtx_pos, tris, tri_valid, *, height: int,
             l_blocks=l_blocks, long_thresh=long_thresh)
     _check(vtx_pos, tris, tri_valid, height, width, 2)
     _check(vtx_pos, tris, tri_valid, height, width, row_tile)
-    _check_cuda(vtx_pos, height, width, row_tile)
+    _check_cuda(vtx_pos, height, width, row_tile, v3=True)
+    _check_cuda(vtx_pos, height, width, 2)
     T = tris.shape[0]
     C, lo_blk, nblk_s, long2, fits, (B, _, sb, lb) = v3_setup(
         vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
@@ -601,8 +595,13 @@ def rasterize_tri_ids_v3(vtx_pos, tris, tri_valid, *, height: int,
     rasterize_tri_ids_v3.launches += 1
     if err != 0:
         raise RuntimeError(f"raster_v3 launch failed: cudaError {err}")
-    _launch_v2_fallback(vtx_pos, tris, tri_valid, fits, out, height=height,
-                        width=width)
+    # The fallback: v2 with its default tiling on the original order,
+    # which does the work only where v3 did not (fits is read on the
+    # device, never on the host).
+    C, bounds, B = v2_setup(vtx_pos, tris, tri_valid, height=height,
+                            width=width, row_tile=2, tri_block=512)
+    _launch_v2(C, bounds, B, fits, out, T=T, height=height, width=width,
+               row_tile=2)
     return out.reshape(height, width)
 
 

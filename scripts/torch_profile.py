@@ -16,7 +16,8 @@ JSON lines:
 - "stage": per engine stage (the `flame.*` profiler ranges of
   Flame.update): host ms and the kernel ms it launched, and its span on
   the device timeline, per frame;
-- "kernel": the top device events by time per frame.
+- "kernel": the top device events by time per frame, and the raster
+  kernels wherever they rank.
 
 Tracing adds host time per launch, so host_ms_per_frame here is higher
 than the untraced ms/frame of chip_smoke.py.
@@ -113,7 +114,8 @@ def main(argv=None):
             print(json.dumps({"stage": e.key, "calls": e.count,
                               "host_ms_per_frame": e.cpu_time_total / 1e3 / n,
                               "kernel_ms_per_frame": _dev_time(e) / n}))
-    for e in sorted(kernels, key=lambda e: -_dev_time(e, True))[:15]:
+    top = sorted(kernels, key=lambda e: -_dev_time(e, True))
+    for e in top[:15] + [e for e in top[15:] if "raster" in e.key]:
         print(json.dumps({"kernel": e.key[:90], "calls": e.count,
                           "device_ms_per_frame": _dev_time(e, True) / n}))
     prof.export_chrome_trace(os.path.join(args.out, "trace.json"))

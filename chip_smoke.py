@@ -37,7 +37,23 @@ Phases, each printed as one line:
    per-frame path's accuracy over the same frames; and prefetched
    windows bit for bit equal to plain `update_window` calls;
 6. small-input agreement: the same 96x128 frames through the card path
-   (CUDA kernels) and the CPU path (plain versions).
+   (CUDA kernels) and the CPU path (plain versions);
+7. the live frontend at VGA with the default FlameParams, over phase 4's
+   60 frames: (a) a FlameNodelet fed by a producer thread while its
+   consumer thread runs — every frame processed, none dropped, health
+   READY at both ends, per-frame accuracy equal to phase 4's, v4 doing
+   the raster work on every frame, process_frame_ms and latency_ms
+   p50/p95 (of the burst, and of frames pushed at 30 frames/s); (b) at
+   frame 30, poseframe_callback with the live poseframes' poses moved by
+   a fixed SE3 and then with one id dropped, held against a numpy
+   recomputation, and save_checkpoint/load_checkpoint: the resumed and
+   the uninterrupted engine run to frame 60 and must agree bit for bit;
+   (c) FlameServer on 127.0.0.1: one client streams 30 uint8 frames and
+   gets every stats message and the idepth map, a second polls meshes,
+   and stop() closes both; (d) epipolar_mode="patch" and the truth
+   harness (--pass-in-truth), each held against the JAX package's CPU
+   run of the sequence; (e) the TUM and ASL loaders and CLI routes over
+   the same frames written as a TUM and an ASL tree.
 
 Any failure exits non-zero. The line before the last is the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`; before
@@ -72,6 +88,19 @@ INSTR_PER_TEST = {"v4": 6, "v2": 9, "v3": 9}
 # printed rmse 0.04661, recall 0.7433, coverage 0.7429 (PERF.md).
 JAX_WINDOWED_VGA = {"idepth_rmse": 0.04661, "recall": 0.7433,
                     "coverage": 0.7429}
+# The JAX package on the CPU over the phase-4 sequence, per frame, with
+# exact per-candidate patch warps in the epipolar search:
+#   JAX_PLATFORMS=cpu python -m flame_ros_tpu.frontends.offline_runner \
+#       --dataset synthetic --frames 60 --resolution vga \
+#       --config cfg/epipolar_patch.yaml
+# and with the truth harness (same command, --pass-in-truth instead of
+# --config). Phase 7 (d) holds the port to each within JAX_BAND: rmse
+# relative, recall and coverage absolute.
+JAX_PATCH_VGA = {"idepth_rmse": 0.04369, "recall": 0.7381,
+                 "coverage": 0.8533}
+JAX_TRUTH_VGA = {"idepth_rmse": 0.02795, "recall": 0.7657,
+                 "coverage": 0.8405}
+JAX_BAND = {"idepth_rmse": 0.05, "recall": 0.02, "coverage": 0.02}
 V3_DEFAULTS = {"tri_block": 128, "s_blocks": 5, "l_blocks": 4,
                "long_thresh": 64.0}
 
@@ -408,6 +437,448 @@ def stream_windows(engine, frames, gts, win, depth=2):
     return secs, rows
 
 
+def jax_band(res, ref):
+    """A run's distance from the JAX package's numbers (rmse relative,
+    recall and coverage absolute) and whether each is within JAX_BAND."""
+    diff = {"idepth_rmse": abs(res.mean_rmse - ref["idepth_rmse"])
+            / ref["idepth_rmse"],
+            "recall": abs(res.mean_recall - ref["recall"]),
+            "coverage": abs(res.final_coverage - ref["coverage"])}
+    return diff, all(diff[k] <= JAX_BAND[k] for k in diff)
+
+
+def pctl(np, xs, q):
+    return float(np.percentile(np.asarray(xs, float), q))
+
+
+def drive_nodelet(node, seq, n, pace_s=0.0):
+    """Push n frames of seq (images and depths stay on the card) from a
+    producer thread, every pace_s seconds (0: a burst), while the
+    nodelet's consumer thread runs, and wait for every stats record.
+    Returns (accepted flags, stats records, meshes' frame ids, heartbeat
+    transitions, health before the first and after the last frame)."""
+    import threading
+    q = seq.poses.q.cpu().numpy()
+    t = seq.poses.t.cpu().numpy()
+    stats, mesh_ids, beats, accepted = [], [], [], []
+    done = threading.Event()
+
+    def on_stats(rec):
+        stats.append(rec)
+        if len(stats) == n:
+            done.set()
+
+    def produce():
+        for i in range(n):
+            accepted.append(node.push_frame(
+                i, float(seq.timestamps[i]), q[i], t[i], seq.images[i],
+                seq.depths[i]))
+            if pace_s:
+                time.sleep(pace_s)
+
+    node.on_stats.append(on_stats)
+    node.on_mesh.append(lambda i, _t, _m: mesh_ids.append(i))
+    node.on_heartbeat.append(beats.append)
+    health0 = node.health
+    node.start()
+    producer = threading.Thread(target=produce)
+    producer.start()
+    producer.join()
+    if not done.wait(timeout=300):
+        raise AssertionError(f"nodelet processed {len(stats)} of {n}")
+    health1 = node.health
+    node.stop()
+    return accepted, stats, mesh_ids, beats, health0, health1
+
+
+def run_engine(engine, seq, lo, hi, SE3):
+    """Frames lo..hi-1 of seq through Flame.update as run_offline feeds
+    them (a poseframe every poseframe_subsample_factor frames, GT depth),
+    each frame's stats read back. Returns the stats records."""
+    q = seq.poses.q.cpu().numpy()
+    t = seq.poses.t.cpu().numpy()
+    pf_every = engine.params.input.poseframe_subsample_factor
+    recs = []
+    for i in range(lo, hi):
+        assert engine.update(float(seq.timestamps[i]), i,
+                             SE3.from_quat_trans(q[i], t[i]), seq.images[i],
+                             i % pf_every == 0, gt_depth=seq.depths[i])
+        recs.append(engine.flush_stats())
+        assert recs[-1]["health"] == 1.0, (i, recs[-1])
+    return recs
+
+
+def serve_round_trip(srv, seq, n):
+    """Client 1 streams n uint8 frames to the running server `srv` and
+    reads every stats message, then the idepth map; client 2 polls meshes
+    meanwhile. Then srv.stop(), and each client must see its connection
+    closed. Returns (stats headers, idepth map, the serving engine's own
+    map read before stop, meshes polled, connections closed)."""
+    import io
+    import socket
+    import threading
+    import numpy as np
+    import torch
+    from flame_ros_torch.frontends.serve import recv_msg, send_msg
+    imgs = torch.clamp(seq.images[:n], 0, 255).to(torch.uint8).cpu().numpy()
+    q = seq.poses.q.cpu().numpy()
+    t = seq.poses.t.cpu().numpy()
+    c1, c2 = (socket.create_connection(("127.0.0.1", srv.port), timeout=60)
+              for _ in range(2))
+    meshes, polling = [], threading.Event()
+    polling.set()
+
+    def poll():
+        while polling.is_set():
+            send_msg(c2, {"type": "get_mesh"})
+            while True:
+                h, payload = recv_msg(c2)
+                if h is None:
+                    return
+                if h["type"] == "mesh":
+                    meshes.append(dict(np.load(io.BytesIO(payload))))
+                    break
+            time.sleep(0.05)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    try:
+        for i in range(n):
+            send_msg(c1, {"type": "frame", "img_id": i,
+                          "time": float(seq.timestamps[i]),
+                          "quat": q[i].tolist(), "trans": t[i].tolist(),
+                          "shape": list(imgs[i].shape), "dtype": "uint8"},
+                     imgs[i].tobytes())
+        stats = []
+        while len(stats) < n:
+            h, _ = recv_msg(c1)
+            assert h is not None, "server closed the stream early"
+            if h["type"] == "stats":
+                stats.append(h)
+        polling.clear()
+        poller.join(60)
+        send_msg(c1, {"type": "get_idepth"})
+        while True:
+            h, payload = recv_msg(c1)
+            if h["type"] == "idepth":
+                break
+        m = np.frombuffer(payload, np.float32).reshape(h["shape"])
+        own = srv.node.engine.get_inverse_depth_map()
+    finally:
+        polling.clear()
+        srv.stop()
+
+    def closed(c):
+        c.settimeout(20)
+        try:
+            while recv_msg(c)[0] is not None:
+                pass
+            return True
+        except ConnectionResetError:
+            return True
+        except OSError:
+            return False
+        finally:
+            c.close()
+
+    return stats, m, own, meshes, [closed(c1), closed(c2)]
+
+
+def write_tum_asl(seq, cam, root, np, torch):
+    """phase 4's frames as a TUM tree (association file, RGB and 16-bit
+    depth PNGs, a CameraInfo YAML) and an EuRoC/ASL tree (camera, depth
+    and pose sensor folders, identity extrinsics). Returns the paths."""
+    import cv2
+    import yaml
+    n = len(seq)
+    g8 = torch.clamp(seq.images, 0, 255).to(torch.uint8).cpu().numpy()
+    d16 = np.round(seq.depths.cpu().numpy() * 5000.0).astype(np.uint16)
+    q = seq.poses.q.cpu().numpy().astype(np.float64)
+    t = seq.poses.t.cpu().numpy().astype(np.float64)
+    tum = os.path.join(root, "tum")
+    asl = os.path.join(root, "asl", "mav0")
+    dirs = {k: os.path.join(asl, k) for k in
+            ("cam0", "depth0", "state_groundtruth_estimate0")}
+    for d in (os.path.join(tum, "rgb"), os.path.join(tum, "depth"),
+              os.path.join(dirs["cam0"], "data"),
+              os.path.join(dirs["depth0"], "data"),
+              dirs["state_groundtruth_estimate0"]):
+        os.makedirs(d, exist_ok=True)
+    eye = {"rows": 4, "cols": 4, "data": np.eye(4).ravel().tolist()}
+    K = cam.K.astype(np.float64)
+    with open(os.path.join(tum, "calib.yaml"), "w") as f:
+        yaml.safe_dump({
+            "image_width": cam.width, "image_height": cam.height,
+            "camera_matrix": {"rows": 3, "cols": 3,
+                              "data": K.ravel().tolist()},
+            "projection_matrix": {
+                "rows": 3, "cols": 4,
+                "data": np.hstack([K, np.zeros((3, 1))]).ravel().tolist()},
+            "distortion_coefficients": {"rows": 1, "cols": 5,
+                                        "data": [0.0] * 5}}, f)
+    for k, meta in (("cam0", {"sensor_type": "camera", "T_BS": eye,
+                              "intrinsics": [cam.fx, cam.fy, cam.cx, cam.cy],
+                              "resolution": [cam.width, cam.height],
+                              "distortion_coefficients": [0.0] * 4}),
+                    ("depth0", {"sensor_type": "camera", "T_BS": eye,
+                                "depth_scale_factor": 5000.0}),
+                    ("state_groundtruth_estimate0",
+                     {"sensor_type": "visual-inertial", "T_BS": eye})):
+        with open(os.path.join(dirs[k], "sensor.yaml"), "w") as f:
+            yaml.safe_dump(meta, f)
+    lines, cam_rows, pose_rows = [], [], []
+    for i in range(n):
+        ts = float(seq.timestamps[i])
+        ns = 1_000_000_000 + round(ts * 1e9)
+        rgb = np.repeat(g8[i][..., None], 3, -1)
+        cv2.imwrite(os.path.join(tum, "rgb", f"{i}.png"), rgb)
+        cv2.imwrite(os.path.join(tum, "depth", f"{i}.png"), d16[i])
+        cv2.imwrite(os.path.join(dirs["cam0"], "data", f"{ns}.png"), g8[i])
+        cv2.imwrite(os.path.join(dirs["depth0"], "data", f"{ns}.png"),
+                    d16[i])
+        # Shortest round-trip decimal of each value.
+        qw, qx, qy, qz, tx, ty, tz = (repr(float(v))
+                                      for v in (*q[i], *t[i]))
+        lines.append(f"{ts!r} {tx} {ty} {tz} {qx} {qy} {qz} {qw} "
+                     f"{ts!r} rgb/{i}.png {ts!r} depth/{i}.png")
+        cam_rows.append(f"{ns},{ns}.png")
+        pose_rows.append(f"{ns},{tx},{ty},{tz},{qw},{qx},{qy},{qz}")
+    with open(os.path.join(tum, "assoc.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    for k, rows in (("cam0", cam_rows), ("depth0", cam_rows),
+                    ("state_groundtruth_estimate0", pose_rows)):
+        with open(os.path.join(dirs[k], "data.csv"), "w") as f:
+            f.write("#timestamp,data\n" + "\n".join(rows) + "\n")
+    return (os.path.join(tum, "assoc.txt"), os.path.join(tum, "calib.yaml"),
+            dirs["state_groundtruth_estimate0"], dirs["cam0"],
+            dirs["depth0"])
+
+
+def live_frontend(seq, recs4, res4, params, cam, dev, out):
+    """Phase 7 over phase 4's sequence `seq`, whose per-frame telemetry
+    is recs4 and whose RunResult is res4."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from flame_ros_torch.config import FlameParams
+    from flame_ros_torch.eval.metrics import TruthStats
+    from flame_ros_torch.frontends import offline_runner
+    from flame_ros_torch.frontends.nodelet import FlameNodelet, Health
+    from flame_ros_torch.frontends.serve import FlameServer
+    from flame_ros_torch.geometry.se3 import SE3
+    from flame_ros_torch.models.engine import Flame, state_to_numpy
+    from flame_ros_torch.ops import raster_cuda as rc
+    n = len(seq)
+
+    def counts_ok(min_frames):
+        launches, work = launch_counts(rc, dev)
+        assert launches["v4"] >= min_frames, launches
+        assert work == {"v4": launches["v4"], "v2": 0, "v3": 0}, work
+        return launches, work
+
+    # (a) nodelet: a burst from a producer thread, then camera rate.
+    keys = ("idepth_rmse", "true_pos", "false_pos", "false_neg", "coverage",
+            "num_tris")
+    node = FlameNodelet(cam, params, queue_size=n, eval_gt_depth=True,
+                        device=dev)
+    rc.reset_counters()
+    accepted, stats, mesh_ids, beats, h0, h1 = drive_nodelet(node, seq, n)
+    launches_a, work_a = counts_ok(n)
+    assert all(accepted) and node.queue.num_dropped == 0, accepted
+    assert [r["img_id"] for r in stats] == list(range(n))
+    assert mesh_ids == list(range(n)), mesh_ids
+    assert h0 == Health.READY and h1 == Health.READY, (h0, h1, beats)
+    assert Health.FAIL not in beats, beats
+    differ = [(i, k) for i, (a, b) in enumerate(zip(stats, recs4))
+              for k in keys if a[k] != b[k]]
+    assert not differ, f"nodelet != phase 4 at (frame, key) {differ[:8]}"
+    truth = [TruthStats.from_record(r) for r in stats]
+    node_p = FlameNodelet(cam, params, queue_size=n, eval_gt_depth=True,
+                          device=dev)
+    accepted_p, stats_p, _, beats_p, _, h1_p = drive_nodelet(
+        node_p, seq, n, pace_s=1.0 / 30)
+    assert all(accepted_p) and len(stats_p) == n
+    steady, steady_p = stats[5:], stats_p[5:]
+    phase("live_nodelet", frames=len(stats), dropped=node.queue.num_dropped,
+          health_start=h0.name, health_end=h1.name,
+          heartbeats=[b.name for b in beats],
+          equal_to_main_path_keys=list(keys),
+          mean_rmse=float(np.nanmean([t.rmse for t in truth])),
+          mean_recall=float(np.nanmean([t.recall for t in truth])),
+          final_coverage=stats[-1]["coverage"],
+          main_path_mean_rmse=res4.mean_rmse,
+          main_path_mean_recall=res4.mean_recall,
+          main_path_final_coverage=res4.final_coverage,
+          process_frame_ms_p50=pctl(np, [r["process_frame_ms"]
+                                         for r in steady], 50),
+          process_frame_ms_p95=pctl(np, [r["process_frame_ms"]
+                                         for r in steady], 95),
+          latency_ms_p50=pctl(np, [r["latency_ms"] for r in steady], 50),
+          latency_ms_p95=pctl(np, [r["latency_ms"] for r in steady], 95),
+          fps_end=stats[-1]["fps"], launches=launches_a, work=work_a,
+          paced_fps_in=30, paced_dropped=node_p.queue.num_dropped,
+          paced_health_end=h1_p.name,
+          paced_heartbeats=[b.name for b in beats_p],
+          paced_process_frame_ms_p50=pctl(
+              np, [r["process_frame_ms"] for r in steady_p], 50),
+          paced_process_frame_ms_p95=pctl(
+              np, [r["process_frame_ms"] for r in steady_p], 95),
+          paced_latency_ms_p50=pctl(np, [r["latency_ms"] for r in steady_p],
+                                    50),
+          paced_latency_ms_p95=pctl(np, [r["latency_ms"] for r in steady_p],
+                                    95))
+
+    # (b) pose-graph edits and a checkpoint at frame 30.
+    mid = n // 2
+    ckpt = os.path.join(out, f"frame{mid}.npz")
+    rc.reset_counters()
+    eng_a = Flame(cam.width, cam.height, cam=cam, params=params, device=dev)
+    recs_a = run_engine(eng_a, seq, 0, mid, SE3)
+    eng_a.save_checkpoint(ckpt)
+    eng_b = Flame(cam.width, cam.height, cam=cam, params=params, device=dev)
+    eng_b.load_checkpoint(ckpt)
+    sa, sb = state_to_numpy(eng_a.state), state_to_numpy(eng_b.state)
+    assert all(np.array_equal(sa[k], sb[k]) for k in sa), "load != save"
+    node_c = FlameNodelet(cam, params, device=dev)
+    node_c.engine.load_checkpoint(ckpt)
+    s0 = state_to_numpy(node_c.engine.state)
+    slots = np.flatnonzero(s0["kf_valid"])
+    slots = slots[np.argsort(s0["kf_ids"][slots])]
+    ids = s0["kf_ids"][slots]
+    tau = [0.01, -0.005, 0.002, 0.002, -0.001, 0.003]
+    step = SE3.exp(np.array(tau, np.float32))
+    moved = SE3(torch.from_numpy(s0["kf_q"][slots]),
+                torch.from_numpy(s0["kf_t"][slots])) @ step
+    node_c.poseframe_callback(ids, moved)
+    s1 = state_to_numpy(node_c.engine.state)
+    want = {k: s0[k].copy() for k in ("kf_q", "kf_t")}
+    want["kf_q"][slots] = moved.q.numpy()
+    want["kf_t"][slots] = moved.t.numpy()
+    for k in ("kf_q", "kf_t"):
+        assert np.array_equal(s1[k], want[k]), k
+    for k in ("kf_valid", "feat.valid"):
+        assert np.array_equal(s1[k], s0[k]), k
+    node_c.poseframe_callback(ids[1:], SE3(moved.q[1:], moved.t[1:]))
+    s2 = state_to_numpy(node_c.engine.state)
+    dead = ~np.isin(s1["kf_ids"], ids[1:])
+    assert np.array_equal(s2["kf_valid"], s1["kf_valid"] & ~dead)
+    assert np.array_equal(s2["feat.valid"],
+                          s1["feat.valid"] & ~dead[s1["feat.kf_idx"]])
+    for k in ("kf_q", "kf_t"):
+        assert np.array_equal(s2[k], s1[k]), k
+    assert node_c._pf_subsample == int(ids[1] - ids[0])
+    recs_c = run_engine(node_c.engine, seq, mid, n, SE3)
+    recs_a += run_engine(eng_a, seq, mid, n, SE3)
+    recs_b = run_engine(eng_b, seq, mid, n, SE3)
+    launches_b, work_b = counts_ok(n + 2 * (n - mid))
+    assert torch.equal(eng_a.state.last_idmap, eng_b.state.last_idmap)
+    ia, ib = eng_a.get_inverse_depth_map(), eng_b.get_inverse_depth_map()
+    assert np.array_equal(ia, ib, equal_nan=True), "resumed idepth differs"
+    sa, sb = state_to_numpy(eng_a.state), state_to_numpy(eng_b.state)
+    state_differs = [k for k in sa if not np.array_equal(sa[k], sb[k])]
+    phase("live_posegraph_checkpoint", checkpoint_frame=mid,
+          checkpoint_bytes=os.path.getsize(ckpt),
+          live_poseframe_ids=ids.tolist(),
+          moved_step=tau,
+          pruned_id=int(ids[0]),
+          features_killed=int(s1["feat.valid"].sum() - s2["feat.valid"].sum()),
+          edits_equal_numpy=True, resumed_idmap_equal=True,
+          resumed_idepth_equal=True, resumed_state_differs=state_differs,
+          uninterrupted_equals_main_path=all(
+              a[k] == b[k] for a, b in zip(recs_a, recs4) for k in keys),
+          edited_mean_rmse_after=float(np.nanmean(
+              [TruthStats.from_record(r).rmse for r in recs_c])),
+          uninterrupted_mean_rmse_after=float(np.nanmean(
+              [TruthStats.from_record(r).rmse for r in recs_a[mid:]])),
+          launches=launches_b, work=work_b)
+
+    # (c) the server on 127.0.0.1.
+    n_srv = min(30, n)
+    srv = FlameServer(cam, params, port=0, queue_size=n_srv + 2, device=dev)
+    rc.reset_counters()
+    t0 = time.perf_counter()
+    srv.start()
+    warmup_s = time.perf_counter() - t0
+    sstats, m, own, meshes, closed = serve_round_trip(srv, seq, n_srv)
+    launches_c, work_c = counts_ok(n_srv)
+    assert [h["img_id"] for h in sstats] == list(range(n_srv))
+    assert np.array_equal(m, own, equal_nan=True), "idepth over the wire"
+    assert meshes and all(
+        {"vertices_px", "idepths", "normals", "triangles", "tri_validity",
+         "edges", "K"} <= set(x) for x in meshes)
+    assert np.array_equal(meshes[-1]["K"], cam.K)
+    assert closed == [True, True], closed
+    assert all(a[k] == b[k] for a, b in zip(sstats, recs4)
+               for k in ("coverage", "num_tris")), "server != phase 4"
+    phase("live_server", frames=len(sstats), warmup_s=warmup_s,
+          meshes_polled=len(meshes),
+          idepth_equal=True, connections_closed_on_stop=closed,
+          coverage_equals_main_path=True,
+          process_frame_ms_p50=pctl(np, [h["process_frame_ms"]
+                                         for h in sstats[5:]], 50),
+          latency_ms_p50=pctl(np, [h["latency_ms"] for h in sstats[5:]],
+                              50),
+          launches=launches_c, work=work_c)
+
+    # (d) patch-mode epipolar and the truth harness against the JAX runs.
+    patch = FlameParams.from_yaml(os.path.join(REPO, "cfg",
+                                               "epipolar_patch.yaml"))
+    assert patch.engine.epipolar_mode == "patch"
+    rows = {}
+    for name, prm, truth_in, ref in (("patch", patch, False, JAX_PATCH_VGA),
+                                     ("truth", params, True, JAX_TRUTH_VGA)):
+        rc.reset_counters()
+        r = offline_runner.run_offline(
+            offline_runner.synthetic_frames(seq), cam, prm,
+            pass_in_truth=truth_in, device=dev)
+        launches_d, work_d = counts_ok(n)
+        diff, ok = jax_band(r, ref)
+        assert r.frames_processed == n and r.frames_failed == 0, r
+        assert ok, (name, r, diff)
+        rows[name] = dict(mean_rmse=r.mean_rmse, mean_recall=r.mean_recall,
+                          mean_precision=r.mean_precision,
+                          final_coverage=r.final_coverage,
+                          final_abs_rel=r.final_abs_rel,
+                          final_delta1=r.final_delta1, jax_cpu=ref,
+                          diff=diff, launches=launches_d, work=work_d)
+    phase("live_patch_truth", band=JAX_BAND, **rows)
+
+    # (e) the TUM and ASL loaders and CLI routes.
+    assoc, calib, pose_dir, rgb_dir, depth_dir = write_tum_asl(
+        seq, cam, os.path.join(out, "datasets"), np, torch)
+    runs = {}
+    for name, fn, argv in (
+            ("tum", offline_runner.main_tum,
+             ["--input", assoc, "--calib", calib]),
+            ("asl", offline_runner.main_asl,
+             ["--pose-path", pose_dir, "--rgb-path", rgb_dir,
+              "--depth-path", depth_dir])):
+        rc.reset_counters()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            r = fn(argv + ["--device", str(dev)])
+        summary = json.loads(printed.getvalue().strip().splitlines()[-1])
+        launches_e, work_e = counts_ok(n)
+        assert set(summary) == {"frames", "failed", "fps", "idepth_rmse",
+                                "precision", "recall", "coverage",
+                                "abs_rel", "delta1"}, summary
+        assert r.frames_processed == n and r.frames_failed == 0, r
+        runs[name] = (r, summary, launches_e, work_e)
+    rt, ra = runs["tum"][0], runs["asl"][0]
+    assert (rt.mean_rmse, rt.mean_recall, rt.final_coverage) == \
+        (ra.mean_rmse, ra.mean_recall, ra.final_coverage), (rt, ra)
+    # Same images and poses as phase 4; only the depth is quantized to
+    # 1/5000 m, which moves the GT metrics and not the state.
+    assert rt.final_coverage == res4.final_coverage, (rt, res4)
+    assert abs(rt.mean_rmse - res4.mean_rmse) <= 0.01 * res4.mean_rmse
+    phase("live_datasets", **{k: dict(summary=s, launches=la, work=w)
+                              for k, (_, s, la, w) in runs.items()},
+          tum_equals_asl=True, coverage_equals_main_path=True,
+          rmse_rel_diff_main_path=abs(rt.mean_rmse - res4.mean_rmse)
+          / res4.mean_rmse)
+
+
 def main():
     try:
         import torch
@@ -712,6 +1183,9 @@ def main():
     phase("small_agreement", rmse_gpu=r_gpu.mean_rmse,
           rmse_cpu=r_cpu.mean_rmse, coverage_gpu=r_gpu.final_coverage,
           coverage_cpu=r_cpu.final_coverage)
+
+    # 7. the live frontend ---------------------------------------------
+    live_frontend(seq, recs, res, params, VGA, dev, OUT)
 
     # Result lines -----------------------------------------------------
     replaces = {"v4": "flame_ros_tpu/ops/raster_pallas.py:458",

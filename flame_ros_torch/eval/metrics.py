@@ -25,6 +25,13 @@ STATS_COLUMNS = (
 )
 
 
+def has_ground_truth(depth) -> bool:
+    """Whether a GT depth map (array or tensor) holds any valid depth."""
+    if isinstance(depth, torch.Tensor):
+        return bool((depth > 0).any())
+    return bool(np.any(np.asarray(depth) > 0))
+
+
 def _nan_to_num(x, nan=0.0):
     return torch.nan_to_num(x, nan=nan)
 

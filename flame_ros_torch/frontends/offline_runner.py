@@ -1,23 +1,36 @@
-"""Offline batch runner over posed frames (synthetic dataset).
+"""Offline dataset frontends: TUM / EuRoC-ASL / synthetic batch runners.
 
-Counterpart of `run_offline`, `run_offline_windowed` and the synthetic
-branch of `main` in `flame_ros_tpu/frontends/offline_runner.py`: drive
-the engine frame by frame, or in poseframe-aligned windows of frames,
-compute GT truth stats per frame (confusion matrix + stats.txt,
-reference protocol), stream per-frame telemetry as JSONL, and print one
-summary JSON line.
+Counterpart of `run_offline`, `run_offline_windowed` and `main` (external
+poses) in `flame_ros_tpu/frontends/offline_runner.py` (reference
+src/flame_offline_tum.cc, src/flame_offline_asl.cc): drive the engine
+frame by frame, or in poseframe-aligned windows of frames, optionally at
+a throttled rate or with ground-truth inverse depth passed in (the truth
+harness), compute GT truth stats per frame (confusion matrix +
+stats.txt, reference protocol), stream per-frame telemetry as JSONL, and
+print one summary JSON line.
 
 Usage:
   python -m flame_ros_torch.frontends.offline_runner --dataset synthetic \\
       --frames 60 --resolution vga --out /tmp/flame_out [--device cuda] \\
-      [--window 6] [--save-products]
+      [--window 6] [--save-products] [--pass-in-truth]
+  python -m flame_ros_torch.frontends.offline_runner --dataset tum \\
+      --input assoc.txt --calib calib.yaml --input-frame RDF --out out/
+  python -m flame_ros_torch.frontends.offline_runner --dataset asl \\
+      --pose-path mav0/state_groundtruth_estimate0 --rgb-path mav0/cam0 \\
+      --world-frame RDF --out out/
+
+Not ported yet (ROADMAP.md queue 1, items 11-12): pose estimation
+(`--pose-source tracking`, `--ba-refine`), the tracking stress and noise
+harnesses (`--occlude`, `--pose-noise-*`), `--profile-stages`, and the
+synthetic stress knobs `--texture-gain` / `--exposure-amp`.
 """
 from __future__ import annotations
 
 import argparse
-import functools
+import dataclasses
 import json
 import os
+import sys
 import time as time_mod
 from dataclasses import dataclass
 from typing import Iterable, Optional
@@ -27,7 +40,7 @@ import torch
 
 from flame_ros_torch.config import FlameParams
 from flame_ros_torch.eval.metrics import (StatsFileWriter, TruthStats,
-                                          depth_metrics)
+                                          depth_metrics, has_ground_truth)
 from flame_ros_torch.geometry.se3 import SE3
 from flame_ros_torch.models.engine import Flame
 from flame_ros_torch.utils.device import resolve_device
@@ -59,10 +72,15 @@ class Frame:
     trans: np.ndarray
 
 
-def _has_gt(depth) -> bool:
+def _truth_idepth(depth):
+    """GT inverse depth, 0 where the depth is invalid (on the depth's
+    device when it is a tensor)."""
     if isinstance(depth, torch.Tensor):
-        return bool((depth > 0).any())
-    return bool(np.any(np.asarray(depth) > 0))
+        d = depth.to(torch.float32)
+        return torch.where(d > 0, 1.0 / torch.clamp(d, min=1e-6),
+                           torch.zeros_like(d))
+    d = np.asarray(depth)
+    return np.where(d > 0, 1.0 / np.maximum(d, 1e-6), 0.0).astype(np.float32)
 
 
 def _final_depth_metrics(res: RunResult, engine: Flame, last_gt) -> None:
@@ -166,7 +184,7 @@ def run_offline_windowed(frames: Iterable, cam, params: FlameParams,
                 flush()
             pose = SE3.from_quat_trans(frame.quat, frame.trans)
             buf.append((frame.time, frame.img_id, pose, frame.gray, is_pf))
-            gts.append(frame.depth if _has_gt(frame.depth) else None)
+            gts.append(frame.depth if has_ground_truth(frame.depth) else None)
             if gts[-1] is not None:
                 last_gt = gts[-1]
             if len(buf) >= window:
@@ -183,14 +201,19 @@ def run_offline_windowed(frames: Iterable, cam, params: FlameParams,
 
 def run_offline(frames: Iterable, cam, params: FlameParams,
                 out_dir: Optional[str] = None,
+                pass_in_truth: bool = False,
+                rate: float = 0.0,
                 max_frames: Optional[int] = None,
-                device=None, engine: Optional[Flame] = None,
-                save_products: bool = False) -> RunResult:
+                save_products: bool = False,
+                quiet: bool = True,
+                device=None, engine: Optional[Flame] = None) -> RunResult:
     """Drive the engine over frames with (img_id, time, gray, depth, quat,
     trans) attributes. Runs on the card unless `device` says otherwise;
     `engine` lets a caller pass (and afterwards inspect) its own engine.
-    save_products writes the final mesh and dense idepth map to
-    out_dir."""
+    pass_in_truth feeds each frame's GT inverse depth into the engine's
+    filter (the truth harness); rate > 0 throttles to that many frames
+    a second. save_products writes the final mesh and dense idepth map
+    to out_dir."""
     if engine is None:
         engine = Flame(cam.width, cam.height, cam=cam, params=params,
                        device=device)
@@ -213,12 +236,14 @@ def run_offline(frames: Iterable, cam, params: FlameParams,
                 continue
             pose = SE3.from_quat_trans(frame.quat, frame.trans)
             is_pf = (n_proc % pf_every) == 0
-            has_gt = _has_gt(frame.depth)
+            has_gt = has_ground_truth(frame.depth)
             if has_gt:
                 last_gt = frame.depth
+            truth = (_truth_idepth(frame.depth) if pass_in_truth and has_gt
+                     else None)
             engine.stats_.tick("sense")
             ok = engine.update(frame.time, frame.img_id, pose, frame.gray,
-                               is_pf,
+                               is_pf, idepths_truth=truth,
                                gt_depth=frame.depth if has_gt else None)
             engine.stats_.tock("sense")
             if not ok:
@@ -249,6 +274,17 @@ def run_offline(frames: Iterable, cam, params: FlameParams,
                 st.set("sys_load_cpu", snap.sys_load.cpu)
             if jsonl:
                 st.dump_jsonl(jsonl, frame.img_id, frame.time)
+            if not quiet:
+                print(f"frame {frame.img_id}: feats="
+                      f"{int(st.stats('num_feats'))} "
+                      f"tris={int(st.stats('num_tris'))} "
+                      f"coverage={st.stats('coverage'):.2f} "
+                      f"update={st.timings('update'):.1f}ms")
+            if rate > 0:
+                budget = 1.0 / rate - (time_mod.perf_counter() - t_start
+                                       - (n_proc - 1) / rate)
+                if budget > 0:
+                    time_mod.sleep(budget)
     finally:
         if jsonl:
             jsonl.close()
@@ -272,16 +308,63 @@ def _round(x, nd):
     return round(x, nd) if np.isfinite(x) else None
 
 
+def _build_frames(args, device):
+    """(frames, cam) of the dataset that args name."""
+    if args.dataset == "synthetic":
+        from flame_ros_torch.datasets.synthetic import (QVGA, VGA,
+                                                        make_sequence)
+        cam = VGA if args.resolution == "vga" else QVGA
+        seq = make_sequence(n_frames=args.frames or 60, cam=cam,
+                            motion=args.motion, scene=args.scene,
+                            device=device)
+        return synthetic_frames(seq), cam
+    if args.dataset == "tum":
+        from flame_ros_torch.datasets.tum import (TUMRGBDStream,
+                                                  load_camera_info_yaml)
+        calib = load_camera_info_yaml(args.calib) if args.calib else None
+        stream = TUMRGBDStream(args.input, calib=calib,
+                               input_frame=args.input_frame,
+                               depth_scale_factor=args.depth_scale_factor,
+                               resize_factor=args.resize_factor)
+        return iter(stream), stream.cam
+    if args.dataset == "asl":
+        from flame_ros_torch.datasets.asl import ASLRGBDStream
+        stream = ASLRGBDStream(args.pose_path, args.rgb_path,
+                               depth_path=args.depth_path,
+                               world_frame=args.world_frame,
+                               resize_factor=args.resize_factor)
+        return iter(stream), stream.cam
+    raise ValueError(args.dataset)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--dataset", choices=["synthetic"], required=True)
+    p.add_argument("--dataset", choices=["tum", "asl", "synthetic"],
+                   required=True)
+    p.add_argument("--input", help="TUM association file")
+    p.add_argument("--calib", help="ROS CameraInfo YAML")
+    p.add_argument("--input-frame", default="RDF")
+    p.add_argument("--depth-scale-factor", type=float, default=5000.0)
+    p.add_argument("--pose-path", help="ASL pose sensor folder")
+    p.add_argument("--rgb-path", help="ASL camera folder")
+    p.add_argument("--depth-path", help="ASL depth folder")
+    p.add_argument("--world-frame", default="RDF")
     p.add_argument("--config", help="FlameParams YAML")
     p.add_argument("--out", help="output directory")
     p.add_argument("--frames", type=int, help="max frames")
+    p.add_argument("--rate", type=float, default=0.0,
+                   help="throttle to N fps (0 = unthrottled)")
+    p.add_argument("--pass-in-truth", action="store_true",
+                   help="feed each frame's GT inverse depth into the "
+                        "filter (the truth harness)")
+    p.add_argument("--resize-factor", type=int, default=1)
     p.add_argument("--motion", default="strafe",
                    help="synthetic trajectory: strafe/forward/rotation/"
                         "mav/static")
     p.add_argument("--scene", default="room", choices=["room", "primitives"])
+    p.add_argument("--zero-mean-ssd", action="store_true",
+                   help="brightness-offset-invariant epipolar matching "
+                        "(engine.zero_mean_ssd; for auto-exposure input)")
     p.add_argument("--resolution", default="qvga", choices=["qvga", "vga"])
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
@@ -291,26 +374,39 @@ def main(argv=None):
     p.add_argument("--save-products", action="store_true",
                    help="write final_mesh.npz and final_idepth.npy to "
                         "--out")
+    p.add_argument("--verbose", action="store_true")
     args = p.parse_args(argv)
+    if args.dataset == "tum" and not args.input:
+        p.error("--dataset tum requires --input <association file>")
+    if args.dataset == "asl" and not (args.pose_path and args.rgb_path):
+        p.error("--dataset asl requires --pose-path and --rgb-path")
     if args.window < 0:
         p.error("--window must be >= 0")
+    if args.window > 0 and (args.pass_in_truth or args.rate > 0):
+        p.error("--window is incompatible with --pass-in-truth/--rate")
     if args.save_products and not args.out:
         p.error("--save-products needs --out")
 
-    from flame_ros_torch.datasets.synthetic import QVGA, VGA, make_sequence
     device = resolve_device(args.device)
     params = (FlameParams.from_yaml(args.config) if args.config
               else FlameParams())
-    cam = VGA if args.resolution == "vga" else QVGA
-    seq = make_sequence(n_frames=args.frames or 60, cam=cam,
-                        motion=args.motion, scene=args.scene, device=device)
+    if args.zero_mean_ssd:
+        params = dataclasses.replace(params, engine=dataclasses.replace(
+            params.engine, zero_mean_ssd=True))
+    frames, cam = _build_frames(args, device)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    run = run_offline if args.window == 0 else functools.partial(
-        run_offline_windowed, window=args.window)
-    res = run(synthetic_frames(seq), cam, params, out_dir=args.out,
-              max_frames=args.frames, device=device,
-              save_products=args.save_products)
+    if args.window > 0:
+        res = run_offline_windowed(
+            frames, cam, params, out_dir=args.out, window=args.window,
+            max_frames=args.frames, save_products=args.save_products,
+            device=device)
+    else:
+        res = run_offline(frames, cam, params, out_dir=args.out,
+                          pass_in_truth=args.pass_in_truth, rate=args.rate,
+                          max_frames=args.frames,
+                          save_products=args.save_products,
+                          quiet=not args.verbose, device=device)
     summary = {
         "frames": res.frames_processed,
         "failed": res.frames_failed,
@@ -324,6 +420,19 @@ def main(argv=None):
     }
     print(json.dumps(summary))
     return res
+
+
+def _console_argv(argv):
+    # A console entry point calls its function with no arguments.
+    return sys.argv[1:] if argv is None else list(argv)
+
+
+def main_tum(argv=None):
+    return main(["--dataset", "tum"] + _console_argv(argv))
+
+
+def main_asl(argv=None):
+    return main(["--dataset", "asl"] + _console_argv(argv))
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@ inverse depths are scored by SSD along the line, refined by a parabola
 fit, gated by the reference's failure taxonomy (msg/FlameStats.msg:13-18)
 and fused into each feature's Gaussian posterior.
 
-Only the product default `mode="line"` (sliding-window line sweep) is
-ported; `mode="patch"` raises NotImplementedError.
+Both candidate samplings are ported: `mode="line"` (the product default,
+one sliding-window sweep along the epipolar curve) and `mode="patch"`
+(each candidate patch the exact warp of the reference patch's rays).
+`gather_dtype="bfloat16"` (a halved-bytes gather for the TPU) is not.
 """
 from __future__ import annotations
 
@@ -107,9 +109,8 @@ def epipolar_update(
     mode: str = "line",
     zero_mean_ssd: bool = False,
 ) -> EpipolarResult:
-    if mode != "line":
-        raise NotImplementedError(
-            f"epipolar mode {mode!r} is not ported yet (only 'line')")
+    if mode not in ("line", "patch"):
+        raise ValueError(f"unknown epipolar mode {mode!r}")
     if gather_dtype != "float32":
         raise NotImplementedError(
             f"gather_dtype {gather_dtype!r} is not ported (only float32)")
@@ -164,12 +165,18 @@ def epipolar_update(
     capped = ((center - xi_lo > max_halfwidth)
               | (xi_hi - center > max_halfwidth))
     xi_lo_2s, xi_hi_2s = xi_lo, xi_hi
-    # Line mode: samples exactly one level-pixel apart along the line,
-    # centered on the posterior; only the +/- sigma_window*sigma band is
-    # scored (masked below).
-    width = 2.0 * max_halfwidth
-    xi_lo = center - 0.5 * width
-    xi_hi = xi_lo + torch.clamp(width, min=1e-6)
+    if mode == "line":
+        # Samples exactly one level-pixel apart along the line, centered
+        # on the posterior; only the +/- sigma_window*sigma band is
+        # scored (masked below).
+        width = 2.0 * max_halfwidth
+        xi_lo = center - 0.5 * width
+        xi_hi = xi_lo + torch.clamp(width, min=1e-6)
+    else:
+        # Patch mode: the band itself, cut to the arc the level covers.
+        xi_lo = torch.maximum(xi_lo, center - max_halfwidth)
+        xi_hi = torch.minimum(xi_hi, center + max_halfwidth)
+        xi_hi = torch.maximum(xi_hi, xi_lo + 1e-6)
 
     # jnp.linspace(0, 1, S) as XLA computes it: i * (1/(S-1)), last = 1.
     step = float(np.float32(1.0) / np.float32(S - 1))
@@ -194,24 +201,40 @@ def epipolar_update(
     ref_grad = torch.abs(torch.diff(ref_patch, dim=-1)).mean(dim=-1)
     ref_grad_ok = (ref_grad >= min_ref_patch_grad) & ref_ok.all(dim=-1)
 
-    # --- sliding line sweep -------------------------------------------
-    # One gather of S+P-1 points along the epipolar curve; adjacent
-    # candidates share P-1 taps.
-    ext = torch.arange(S + P - 1, dtype=f32, device=dev) - half
-    xi_ext = xis[:, :1] + ext[None, :] * dxi_step[:, None]
-    hom = A[:, None, :] + xi_ext[..., None] * B[:, None, :]
-    in_front = hom[..., 2] > 1e-6
-    zc = torch.where(in_front, hom[..., 2], torch.ones_like(hom[..., 2]))
-    uv_ext = hom[..., :2] / zc[..., None]
-    line_vals, line_ok = bilinear_pyramid(img_pyr, uv_ext, level[:, None])
-    lok = line_ok & in_front
-    cand_vals = torch.stack([line_vals[:, p:p + S] for p in range(P)], -1)
-    allow = ((xis >= idepth_min) & (xis <= idepth_max)
-             & (xis >= (xi_lo_2s - 0.5 * dxi_step)[:, None])
-             & (xis <= (xi_hi_2s + 0.5 * dxi_step)[:, None]))
-    cand_ok = torch.stack([lok[:, p:p + S] for p in range(P)],
-                          -1).all(-1) & allow
-    cand_uv_center = uv_ext[:, half:half + S, :]
+    if mode == "line":
+        # --- sliding line sweep ---------------------------------------
+        # One gather of S+P-1 points along the epipolar curve; adjacent
+        # candidates share P-1 taps.
+        ext = torch.arange(S + P - 1, dtype=f32, device=dev) - half
+        xi_ext = xis[:, :1] + ext[None, :] * dxi_step[:, None]
+        hom = A[:, None, :] + xi_ext[..., None] * B[:, None, :]
+        in_front = hom[..., 2] > 1e-6
+        zc = torch.where(in_front, hom[..., 2], torch.ones_like(hom[..., 2]))
+        uv_ext = hom[..., :2] / zc[..., None]
+        line_vals, line_ok = bilinear_pyramid(img_pyr, uv_ext,
+                                              level[:, None])
+        lok = line_ok & in_front
+        cand_vals = torch.stack([line_vals[:, p:p + S] for p in range(P)],
+                                -1)
+        allow = ((xis >= idepth_min) & (xis <= idepth_max)
+                 & (xis >= (xi_lo_2s - 0.5 * dxi_step)[:, None])
+                 & (xis <= (xi_hi_2s + 0.5 * dxi_step)[:, None]))
+        cand_ok = torch.stack([lok[:, p:p + S] for p in range(P)],
+                              -1).all(-1) & allow
+        cand_uv_center = uv_ext[:, half:half + S, :]
+    else:
+        # --- candidate patches: exact warp of the ref-patch rays ------
+        A_taps = _matT(quat_rotate(q_cr[:, None, :], cam.ray(ref_uv)), K)
+        hom = (A_taps[:, None, :, :]
+               + xis[:, :, None, None] * B[:, None, None, :])  # [N,S,P,3]
+        in_front = hom[..., 2] > 1e-6
+        zc = torch.where(in_front, hom[..., 2], torch.ones_like(hom[..., 2]))
+        cand_uv = hom[..., :2] / zc[..., None]                 # [N,S,P,2]
+        cand_vals, cand_ok = bilinear_pyramid(img_pyr, cand_uv,
+                                              level[:, None, None])
+        cand_ok = (cand_ok & in_front).all(dim=-1)             # [N, S]
+        cand_uv_center = cand_uv[:, :, half, :]
+        allow = torch.ones_like(cand_ok)
 
     if zero_mean_ssd:
         ref_patch_c = ref_patch - ref_patch.mean(-1, keepdim=True)

@@ -1,9 +1,10 @@
 """Ground rules of the PyTorch port (flame_ros_torch/):
 
 - it imports nothing of JAX or of the JAX package, not even indirectly:
-  a CPU run of the per-frame and the windowed, deferred paths and the
-  mesh getters leaves "jax" out of sys.modules (checked in a fresh
-  interpreter, since the test process itself imports JAX);
+  a CPU run of the per-frame and the windowed, deferred paths, the mesh
+  getters, the nodelet and the server leaves "jax" out of sys.modules
+  (checked in a fresh interpreter, since the test process itself
+  imports JAX), and no file of it names either in an import;
 - importing it turns TF32 off for matmul and cuDNN (the reference pins
   geometry to full f32);
 - its entry points run on the card unless asked for the CPU, and raise
@@ -48,6 +49,32 @@ eng._apply_pending_triangulation(block=True)
 eng.shutdown()
 eng.get_inverse_depth_mesh()
 eng.get_normal_map()
+# The live frontend: the nodelet's threads, the server over 127.0.0.1.
+import socket
+import time
+import numpy as np
+from flame_ros_torch.frontends.nodelet import FlameNodelet
+from flame_ros_torch.frontends.serve import FlameServer, recv_msg, send_msg
+q, t = seq.poses.q.numpy(), seq.poses.t.numpy()
+node = FlameNodelet(cam, params, device="cpu")
+stats = []
+node.on_stats.append(stats.append)
+node.start()
+for i in range(3):
+    node.push_frame(i, float(seq.timestamps[i]), q[i], t[i], seq.images[i])
+while len(stats) < 3:
+    time.sleep(0.01)
+node.stop()
+srv = FlameServer(cam, params, device="cpu")
+srv.start()
+c = socket.create_connection(("127.0.0.1", srv.port), timeout=60)
+img = np.clip(seq.images[0].numpy(), 0, 255).astype(np.uint8)
+send_msg(c, {"type": "frame", "img_id": 0, "time": 0.0,
+             "quat": q[0].tolist(), "trans": t[0].tolist(),
+             "shape": list(img.shape), "dtype": "uint8"}, img.tobytes())
+assert recv_msg(c)[0]["type"] == "stats"
+srv.stop()
+c.close()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flame_ros_tpu"))
 print("LOADED", bad)
@@ -86,6 +113,14 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
             "flame_ros_torch.config", fromlist=["FlameParams"]).FlameParams())
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--dataset", "synthetic", "--frames", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--dataset", "tum", "--input", "assoc.txt"])
+    from flame_ros_torch.frontends.nodelet import FlameNodelet
+    from flame_ros_torch.frontends.serve import FlameServer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FlameNodelet(QVGA)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FlameServer(QVGA)
     # Explicit CPU works.
     assert Flame(QVGA.width, QVGA.height, cam=QVGA,
                  device="cpu").device.type == "cpu"

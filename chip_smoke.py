@@ -12,18 +12,22 @@ Phases, each printed as one line:
    (Delaunay of 2048 seeded random points, and of 1300 of them for the
    engine's density): the v4, v2 and v3 raster kernels must equal their
    plain PyTorch versions bit for bit on an unsorted, a y-sorted, an
-   engine-density, a long-triangle, a forced-fallback (v3's budgets), an
-   empty, a sliver and a multi-chunk mesh, with the device work counters
-   showing which kernel did the work; CUDA-event medians of the kernel
-   alone (one launch between two events, and back to back on the card),
-   of the wrapper and of the plain version, beside the kernel's bound;
+   engine-density, a long-triangle, a forced-fallback (budgets so small
+   that the TPU v3 falls back to v2; the port's v3, which has none, must
+   give v2's ids there), an empty, a sliver and a multi-chunk mesh, each
+   wrapper call making one launch of its own kernel and none of another
+   (wrapper counts and device work counters); whether the TPU v3's
+   budgets would hold; CUDA-event medians of the kernel alone (one launch
+   between two events, and back to back on the card), of the wrapper and
+   of the plain version, beside the kernel's bound;
 4. the main path: `run_offline` at VGA with the default FlameParams over
    60 frames rendered on the card — health on every frame, the v4 kernel
    launched and doing the work on every frame and v2 on none, the id
    buffer of six frames recomputed from the engine's own state by the
    plain v4 version (equal) and by the plain formulation `ops/raster.py::
    rasterize_tri_ids` (equal but on the few pixels that v4's evaluation
-   order and its own split at VGA), whether v3's budgets would hold there,
+   order and its own split at VGA), whether the TPU v3's budgets would
+   hold there,
    ms/frame and accuracy; then the v4 and v2 kernels timed on those six
    frames' inputs (kernel only and wrapper, CUDA-event medians), each
    equal to its plain version there;
@@ -101,12 +105,33 @@ JAX_PATCH_VGA = {"idepth_rmse": 0.04369, "recall": 0.7381,
 JAX_TRUTH_VGA = {"idepth_rmse": 0.02795, "recall": 0.7657,
                  "coverage": 0.8405}
 JAX_BAND = {"idepth_rmse": 0.05, "recall": 0.02, "coverage": 0.02}
+# The TPU v3 kernel's defaults; the port's v3 takes tri_block and
+# long_thresh only (it has no block budgets).
 V3_DEFAULTS = {"tri_block": 128, "s_blocks": 5, "l_blocks": 4,
                "long_thresh": 64.0}
 
 
 def phase(name, **kv):
     print(json.dumps({"phase": name, **kv}), flush=True)
+
+
+def port_kw(kw):
+    """A kernel's keyword arguments without the TPU v3's block budgets."""
+    return {k: v for k, v in kw.items() if k not in ("s_blocks", "l_blocks")}
+
+
+def v3_budgets_hold(rc, args, H, kw):
+    """Whether the TPU v3 kernel's block budgets (each clipped to the
+    block count) would hold on this mesh, from the port's setup; the JAX
+    wrapper runs v2 where they do not
+    (flame_ros_tpu/ops/raster_pallas.py:275)."""
+    kw = {**V3_DEFAULTS, **kw}
+    _, _, nblk_s, long2, B = rc.v3_setup(
+        *args, height=H, row_tile=2, tri_block=kw["tri_block"],
+        long_thresh=kw["long_thresh"])
+    n_blocks = args[1].shape[0] // B
+    return (int(nblk_s.max()) <= min(kw["s_blocks"], n_blocks)
+            and int(long2[1]) <= min(kw["l_blocks"], n_blocks))
 
 
 def cuda_median_ms(fn, reps=30, warmup=3):
@@ -231,8 +256,8 @@ def make_meshes(triangulate, np, H=480, W=640, n=2048, T=4096, seed=0):
 def bare_launch(rc, name, args, H, W, kw, lib=None, rt=2):
     """A launch of the kernel alone, its inputs prepared once (for the
     split of the wrapper's time between setup and kernel), from the
-    package's library or `lib`, on tiles of `rt` rows (v4, v2). fn.out
-    is its output, fn.slab_bytes the bytes of its inputs."""
+    package's library or `lib`, on tiles of `rt` rows. fn.out is its
+    output, fn.slab_bytes the bytes of its inputs."""
     import torch
     lib = lib or rc._get_lib()
     out = torch.empty(H * W, dtype=torch.int32, device=args[0].device)
@@ -241,15 +266,17 @@ def bare_launch(rc, name, args, H, W, kw, lib=None, rt=2):
     stream = torch.cuda.current_stream().cuda_stream
     T = args[1].shape[0]
     if name == "v3":
-        C, lo_blk, nblk_s, long2, fits, (B, _, sb, lb) = rc.v3_setup(
-            *args, height=H, row_tile=2, **{**V3_DEFAULTS, **kw})
-        keep = (C, lo_blk, nblk_s, long2, fits)
+        C, lo_blk, nblk_s, long2, B = rc.v3_setup(
+            *args, height=H, row_tile=rt,
+            tri_block=kw.get("tri_block", V3_DEFAULTS["tri_block"]),
+            long_thresh=kw.get("long_thresh", V3_DEFAULTS["long_thresh"]))
+        keep = (C, lo_blk, nblk_s, long2)
 
         def fn():
             lib.raster_v3_launch(C.data_ptr(), T, lo_blk.data_ptr(),
-                                 nblk_s.data_ptr(), long2.data_ptr(),
-                                 fits.data_ptr(), out.data_ptr(), H, W, 2,
-                                 B, sb, lb, work.data_ptr(), stream)
+                                 nblk_s.data_ptr(), long2.data_ptr(), B,
+                                 out.data_ptr(), H, W, rt, work.data_ptr(),
+                                 stream)
     elif name == "v4":
         C, lo_pos, hi_pos, counts = rc.v4_setup(
             *args, height=H, row_tile=rt,
@@ -268,8 +295,8 @@ def bare_launch(rc, name, args, H, W, kw, lib=None, rt=2):
 
         def fn():
             lib.raster_v2_launch(C.data_ptr(), T, bounds.data_ptr(), B,
-                                 None, out.data_ptr(), H, W, rt,
-                                 work.data_ptr(), stream)
+                                 out.data_ptr(), H, W, rt, work.data_ptr(),
+                                 stream)
     fn.keep = keep
     fn.out = out.reshape(H, W)
     fn.slab_bytes = sum(t.numel() * t.element_size() for t in keep)
@@ -343,8 +370,9 @@ def drive_main_path(engine, seq, out_dir):
     buffer from the engine's own state with the plain v4 version, which
     must equal it, and with the plain formulation `ops/raster.py::
     rasterize_tri_ids`, which may differ only on pixels that the two
-    evaluation orders split (order_split); records whether v3's budgets
-    would hold on that frame's mesh, and keeps the raster's inputs.
+    evaluation orders split (order_split); records whether the TPU v3's
+    budgets would hold on that frame's mesh, and keeps the raster's
+    inputs.
     Returns (RunResult, ms per frame, checked frame ids, pixels that
     differ from the plain formulation per checked frame, v3 fits per
     checked frame, raster inputs per checked frame, telemetry)."""
@@ -387,10 +415,7 @@ def drive_main_path(engine, seq, out_dir):
                 split.append(n_px)
                 checked.append(i - 1)
                 inputs.append((st.vtx_uv.clone(), st.tris.clone(), pvalid))
-                *_, fits, _ = rc.v3_setup(
-                    st.vtx_uv, st.tris, pvalid, height=cam.height,
-                    row_tile=2, **V3_DEFAULTS)
-                v3_fits.append(bool(fits))
+                v3_fits.append(v3_budgets_hold(rc, args, cam.height, {}))
             starts.append(time.perf_counter())
             yield f
         ends.append(time.perf_counter())
@@ -947,8 +972,7 @@ def main():
     max_err = {n: 0 for n in names}
     for case, ((pos, tp, tv), kws) in meshes.items():
         args = [torch.from_numpy(a).to(dev) for a in (pos, tp, tv)]
-        fits3 = bool(rc.v3_setup(*args, height=H, row_tile=2,
-                                 **{**V3_DEFAULTS, **kws.get("v3", {})})[4])
+        fits3 = v3_budgets_hold(rc, args, H, kws.get("v3", {}))
         if case == "forced_fallback":
             assert not fits3
         _, lo_pos, hi_pos, counts = rc.v4_setup(*args, height=H, row_tile=2,
@@ -958,13 +982,15 @@ def main():
         if case == "multi_chunk":
             assert v4_range > 2 * rc.STAGE_CHUNK, v4_range
         pairs = bbox_pairs(torch, *args, H, W)
+        outs = {}
         for name in names:
             kern, ref = funcs[name]
-            kk = kws.get(name, {})
+            kk = port_kw(kws.get(name, {}))
             rc.reset_counters()
             out = kern(*args, height=H, width=W, **kk)
             torch.cuda.synchronize()
-            work = rc.work_counters(dev).tolist()
+            one_call, work = launch_counts(rc, dev)
+            outs[name] = out
             plain = ref(*args, height=H, width=W, **kk)
             torch.cuda.synchronize()
             err = int((out.long() - plain.long()).abs().max())
@@ -973,12 +999,17 @@ def main():
                 raise AssertionError(
                     f"{name} kernel != plain on {case}: "
                     f"{int((out != plain).sum())} pixels differ")
-            # The kernel that did the work: the one called, or v2 where
-            # v3's budgets did not hold.
-            expect = [0] * len(rc.WORK_SLOTS)
-            expect[rc.WORK_SLOTS.index(
-                "v2" if name == "v3" and not fits3 else name)] = 1
-            assert work == expect, (case, name, work, expect)
+            # One launch of the kernel called, none of another, whatever
+            # the TPU v3's budgets would have done.
+            expect = {n: int(n == name) for n in names}
+            assert one_call == expect and work == expect, \
+                (case, name, one_call, work)
+            eq_v2 = name == "v3" and bool(torch.equal(out, outs["v2"]))
+            if name == "v3" and not (fits3 or eq_v2):
+                # Where the JAX wrapper answers with v2, so must v3.
+                raise AssertionError(
+                    f"v3 != v2 on {case} (TPU budgets overflow): "
+                    f"{int((out != outs['v2']).sum())} pixels differ")
             ms = cuda_median_ms(lambda: kern(*args, height=H, width=W, **kk))
             bare = bare_launch(rc, name, args, H, W, kk)
             kernel_ms = cuda_median_ms(bare)
@@ -997,7 +1028,8 @@ def main():
                 bbox_pairs=pairs,
                 candidate_tests=y_overlap_tests(torch, *args, H, W),
                 v4_max_tile_range=v4_range,
-                fits=fits3 if name == "v3" else None, work=work,
+                fits=fits3 if name == "v3" else None,
+                equals_v2=eq_v2 if name == "v3" else None, work=work,
                 covered=float((out >= 0).float().mean()))
             phase("kernel", kernel=name, case=case, equal=True,
                   **rows[name][case])

@@ -21,8 +21,18 @@
 // tile's contiguous triangle range [lo * tri_block, hi * tri_block) in
 // original order, so a pixel's first hit is its answer.
 //
-// Both share one design (raster_tile below):
+// raster_v3 replaces rasterize_tri_ids_pallas_v3 / _kernel_v3
+// (flame_ros_tpu/ops/raster_pallas.py:180-315). The wrapper sorts as for
+// v4, in blocks of tri_block columns. A tile needs the short blocks from
+// lo_blk (nblk_s of them) and the shared long blocks from long_lo (n_lblk
+// of them); the TPU kernel walks at most s_blocks + l_blocks of them as a
+// grid axis of static length and falls back to v2 when a frame needs
+// more. Here each block walks all of them, so v3 has no budget and no
+// fallback either. Its blocks can hold invalid (class-2) columns, which
+// the cull drops; a column in both a short and a long block is tested
+// twice, which the minimum does not see.
 //
+// All three share one design (raster_tile below):
 // - Staging: candidates stream through shared memory in chunks of CH,
 //   double-buffered with cp.async (chunk k + 1 is in flight while chunk k
 //   is tested); coefficient r of candidate k sits at row r, column k, so
@@ -45,16 +55,11 @@
 // - Pixels: a thread owns PIX consecutive pixels of one row; a warp owns
 //   2 rows x 64 pixels; a block owns the tile. The per-row part of an
 //   edge function is computed once per candidate per thread.
-//
-// raster_v3 replaces rasterize_tri_ids_pallas_v3 / _kernel_v3
-// (flame_ros_tpu/ops/raster_pallas.py:180-315). The wrapper sorts as for
-// v4. A tile needs at most s_blocks blocks of tri_block short triangles
-// from lo_blk, plus at most l_blocks shared blocks of long ones; the TPU
-// kernel walks them as a grid axis of s_blocks + l_blocks steps with the
-// output tile as the accumulator. Here one block per tile loops over
-// those steps itself, skips the inactive ones, stages each active block in
-// shared memory (11 x 128 floats, 5.6 KB) and keeps a running minimum of
-// original ids per pixel in registers.
+// - Two switches, independent of each other: the reduction (v4 and v3
+//   keep the minimum original id, in any candidate order; v2's ids
+//   ascend, so it takes the first hit and stops once every pixel of the
+//   block has one) and the edge evaluation order (below). v3 is v4's
+//   reduction with v2's order.
 //
 // What bounds them on this card: neither arithmetic nor bytes. The
 // inside tests the data needs — one per (pixel, valid triangle) pair whose
@@ -64,20 +69,19 @@
 // wait on is latency: each block runs its chunks one after another (load,
 // cull, compaction, tests, three barriers each). Hence the cull, which
 // trims a chunk to the candidates that matter, and the next chunk's load
-// in flight during the current one's work. chip_smoke.py prints each
-// kernel's time beside that bound.
+// in flight during the current one's work. v3 walks whole blocks, so it
+// stages more chunks than v4's exact ranges (staging bandwidth, not
+// tests: the cull drops what the block quantization adds).
+// chip_smoke.py prints each kernel's time beside that bound.
 //
 // Exactness: the id buffer must equal the plain PyTorch version bit for
 // bit, so every edge function is evaluated with explicit round-to-nearest
 // multiplies and adds (no FMA contraction), in the JAX kernels' order:
 // x*a + (y*b + c) for v4, (x*a + y*b) + c for v2 and v3. Hoisting the
-// per-row term y*b + c (v4) or y*b (v2) changes no rounding.
+// per-row term y*b + c (v4) or y*b (v2, v3) changes no rounding.
 //
-// The v3 -> v2 fallback needs no host sync: `fits` is a device flag.
-// raster_v3 returns at once when it is false; raster_v2 launched with
-// skip_if = fits returns at once when it is true. Each kernel adds 1 to
-// work[k] (k = 0 for v4, 1 for v2, 2 for v3) when it does the work, so a
-// run can show which one did.
+// Each kernel adds 1 to work[k] (k = 0 for v4, 1 for v2, 2 for v3) once
+// per launch, so a run can show which kernel did the raster work.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -89,23 +93,12 @@ namespace {
 constexpr float EPS = -1e-3f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// raster_v4 / raster_v2.
 constexpr int PIX = 4;                    // consecutive pixels per thread
 constexpr int WARP_ROWS = 2;              // a warp owns 2 rows ...
 constexpr int WARP_COLS = 32 / WARP_ROWS * PIX;   // ... of 64 pixels
 constexpr int CH = 256;                   // candidates staged per chunk
 constexpr int GROUPS = CH / 32;
 constexpr float GUARD = 1e-6f;            // ~16 f32 ulps, relative
-
-// raster_v3.
-constexpr int PIX3 = 4;
-constexpr int CHUNK3 = 128;
-
-__device__ __forceinline__ float edge_v2(float x, float y, float a, float b,
-                                         float c) {
-  // (x*a + y*b) + c, rounded op by op.
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, a), __fmul_rn(y, b)), c);
-}
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -195,18 +188,21 @@ __device__ __forceinline__ Rect region_box(const float (&e)[9], float sx,
 }
 
 // One tile of `row_tile` rows. Candidates j in [0, n) sit at column
-// src(j) of C ([rows, T] row-major): V4 reads coefficient rows 0-8 and the
-// original id (row 10), V2 rows 0-8 and the validity (row 9), its id
-// being the column. V4 keeps the minimum id per pixel; V2 takes the
-// first hit (ids ascend) and stops once every pixel of the block has one.
-// A candidate survives a cull against a rectangle when its region_box
-// overlaps the rectangle.
-template <bool V4, typename Src>
+// src(j) of C ([rows, T] row-major): edge coefficients in rows 0-8, then
+// what the list's Src says it needs. With Src::kValidity the list may hold
+// invalid columns: row 9 (validity) is staged and an invalid column fails
+// the cull. With Src::kIdRow a candidate's id is its original id in row
+// 10; otherwise it is its column. FIRST_HIT: a pixel takes its first hit
+// and the block stops once every pixel has one (the ids must ascend);
+// otherwise the minimum id wins. ROW_SPLIT: x*a + (y*b + c); otherwise
+// (x*a + y*b) + c. A candidate survives a cull against a rectangle when
+// its region_box overlaps the rectangle.
+template <bool FIRST_HIT, bool ROW_SPLIT, typename Src>
 __device__ __forceinline__ void raster_tile(const float* __restrict__ C,
                                             int T, int n, Src src,
                                             int* __restrict__ out, int width,
                                             int row_tile) {
-  __shared__ float raw[2][10][CH];   // staged chunks (row 9: id or valid)
+  __shared__ float raw[2][11][CH];   // staged chunks (rows 9-10 as in C)
   __shared__ float bx[4][CH];        // the staged chunk's region boxes
   __shared__ float cf[13][CH];       // survivors: coefficients and boxes
   __shared__ int cid[CH];            // and ids
@@ -240,7 +236,6 @@ __device__ __forceinline__ void raster_tile(const float* __restrict__ C,
       (float)min(wx * WARP_COLS + WARP_COLS - 1, width - 1), (float)wy0,
       (float)min(wy0 + WARP_ROWS - 1, y_tile + row_tile - 1)};
 
-  const int id_row = V4 ? 10 : 9;
   auto stage = [&](int chunk, int buf) {
     for (int k = threadIdx.x; k < CH; k += blockDim.x) {
       const int j = chunk * CH + k;
@@ -248,7 +243,8 @@ __device__ __forceinline__ void raster_tile(const float* __restrict__ C,
         const float* p = C + src(j);
 #pragma unroll
         for (int r = 0; r < 9; ++r) cp_async4(&raw[buf][r][k], p + r * T);
-        cp_async4(&raw[buf][9][k], p + id_row * T);
+        if constexpr (Src::kValidity) cp_async4(&raw[buf][9][k], p + 9 * T);
+        if constexpr (Src::kIdRow) cp_async4(&raw[buf][10][k], p + 10 * T);
       }
     }
     cp_async_commit();
@@ -267,15 +263,15 @@ __device__ __forceinline__ void raster_tile(const float* __restrict__ C,
       cp_async_wait<0>();
     }
     // The chunk is visible to all, and the previous test loop is over
-    // (cf and cid may be rewritten). v2: leave once all pixels are hit.
-    if (__syncthreads_and(!V4 && done)) break;
+    // (cf and cid may be rewritten). First hit: leave once all are hit.
+    if (__syncthreads_and(FIRST_HIT && done)) break;
 
     const int base = ch * CH;
     const int nk = min(CH, n - base);
     for (int g = warp; g < GROUPS; g += nwarps) {
       const int k = g * 32 + lane;
       bool keep = false;
-      if (k < nk && (V4 || raw[buf][9][k] > 0.0f)) {
+      if (k < nk && (!Src::kValidity || raw[buf][9][k] > 0.0f)) {
         float e[9];
 #pragma unroll
         for (int r = 0; r < 9; ++r) e[r] = raw[buf][r][k];
@@ -300,7 +296,11 @@ __device__ __forceinline__ void raster_tile(const float* __restrict__ C,
         for (int r = 0; r < 9; ++r) cf[r][dst] = raw[buf][r][k];
 #pragma unroll
         for (int r = 0; r < 4; ++r) cf[9 + r][dst] = bx[r][k];
-        cid[dst] = V4 ? (int)raw[buf][9][k] : src(base + k);
+        if constexpr (Src::kIdRow) {
+          cid[dst] = (int)raw[buf][10][k];
+        } else {
+          cid[dst] = src(base + k);
+        }
       }
     }
     int nc = 0;
@@ -308,7 +308,7 @@ __device__ __forceinline__ void raster_tile(const float* __restrict__ C,
     for (int h = 0; h < GROUPS; ++h) nc += __popc(gmask[h]);
     __syncthreads();
 
-    bool warp_done = !V4 && __all_sync(FULL, done);
+    bool warp_done = FIRST_HIT && __all_sync(FULL, done);
     for (int s0 = 0; s0 < nc && !warp_done; s0 += 32) {
       bool keep = false;
       if (s0 + lane < nc) {
@@ -324,19 +324,19 @@ __device__ __forceinline__ void raster_tile(const float* __restrict__ C,
         const float a1 = cf[3][k], b1 = cf[4][k], c1 = cf[5][k];
         const float a2 = cf[6][k], b2 = cf[7][k], c2 = cf[8][k];
         const int id = cid[k];
-        // The per-row terms: y*b + c (v4) or y*b (v2).
-        const float d0 = V4 ? __fadd_rn(__fmul_rn(y, b0), c0)
-                            : __fmul_rn(y, b0);
-        const float d1 = V4 ? __fadd_rn(__fmul_rn(y, b1), c1)
-                            : __fmul_rn(y, b1);
-        const float d2 = V4 ? __fadd_rn(__fmul_rn(y, b2), c2)
-                            : __fmul_rn(y, b2);
+        // The per-row terms: y*b + c (row split) or y*b.
+        const float d0 = ROW_SPLIT ? __fadd_rn(__fmul_rn(y, b0), c0)
+                                   : __fmul_rn(y, b0);
+        const float d1 = ROW_SPLIT ? __fadd_rn(__fmul_rn(y, b1), c1)
+                                   : __fmul_rn(y, b1);
+        const float d2 = ROW_SPLIT ? __fadd_rn(__fmul_rn(y, b2), c2)
+                                   : __fmul_rn(y, b2);
         bool all = true;
 #pragma unroll
         for (int j = 0; j < PIX; ++j) {
           const float x = (float)(col0 + j);
           float e0, e1, e2;
-          if (V4) {
+          if (ROW_SPLIT) {
             e0 = __fadd_rn(__fmul_rn(x, a0), d0);
             e1 = __fadd_rn(__fmul_rn(x, a1), d1);
             e2 = __fadd_rn(__fmul_rn(x, a2), d2);
@@ -346,14 +346,14 @@ __device__ __forceinline__ void raster_tile(const float* __restrict__ C,
             e2 = __fadd_rn(__fadd_rn(__fmul_rn(x, a2), d2), c2);
           }
           const bool in = (e0 >= EPS) & (e1 >= EPS) & (e2 >= EPS);
-          if (V4) {
-            if (in) best[j] = min(best[j], id);
-          } else {
+          if (FIRST_HIT) {
             if (in && best[j] == big) best[j] = id;
             all = all && best[j] != big;
+          } else {
+            if (in) best[j] = min(best[j], id);
           }
         }
-        if (!V4) {
+        if (FIRST_HIT) {
           done = all;
           if (__all_sync(FULL, done)) {
             warp_done = true;
@@ -363,7 +363,8 @@ __device__ __forceinline__ void raster_tile(const float* __restrict__ C,
       }
     }
   }
-  cp_async_wait<0>();   // a v2 block that left early has copies in flight
+  // A first-hit block that left early has copies in flight.
+  cp_async_wait<0>();
 
   if (row < row_tile) {
     int* o = out + (size_t)(y_tile + row) * width + col0;
@@ -375,18 +376,33 @@ __device__ __forceinline__ void raster_tile(const float* __restrict__ C,
 }
 
 // The v4 candidate list of one tile: sorted positions [lo, lo + n_s),
-// then [n_short, n_live).
+// then [n_short, n_live); live columns only.
 struct V4Src {
+  static constexpr bool kValidity = false, kIdRow = true;
   int lo, n_s, n_short;
   __device__ int operator()(int j) const {
     return j < n_s ? lo + j : n_short + (j - n_s);
   }
 };
 
-// The v2 candidate list of one tile: columns [t_lo, t_hi).
+// The v2 candidate list of one tile: columns [t_lo, t_hi), original order.
 struct V2Src {
+  static constexpr bool kValidity = true, kIdRow = false;
   int t_lo;
   __device__ int operator()(int j) const { return t_lo + j; }
+};
+
+// The v3 candidate list of one tile: the n_s short blocks from lo, then
+// the shared long blocks from long_lo, each block index clipped to
+// [0, n_blocks) as the Pallas index map does, expanded to its B columns.
+struct V3Src {
+  static constexpr bool kValidity = true, kIdRow = true;
+  int lo, n_s, long_lo, B, n_blocks;
+  __device__ int operator()(int j) const {
+    const int k = j / B;
+    const int blk = k < n_s ? lo + k : long_lo + (k - n_s);
+    return min(max(blk, 0), n_blocks - 1) * B + (j - k * B);
+  }
 };
 
 // C: [11, T] row-major, columns in sorted order. lo_pos, hi_pos:
@@ -403,102 +419,46 @@ __global__ void raster_v4_kernel(const float* __restrict__ C, int T,
   const int n_s = max(hi_pos[tile] - lo, 0);
   const int n_short = counts[0];
   const int n_long = max(counts[1] - n_short, 0);
-  raster_tile<true>(C, T, n_s + n_long, V4Src{lo, n_s, n_short}, out, width,
-                    row_tile);
+  raster_tile<false, true>(C, T, n_s + n_long, V4Src{lo, n_s, n_short}, out,
+                           width, row_tile);
 }
 
 // C: [10, T] row-major (9 edge coefficients, validity) in original order.
-// bounds: [n_tiles, 2] int32 block range [lo, hi). skip_if: device bool
-// or null.
+// bounds: [n_tiles, 2] int32 block range [lo, hi).
 __global__ void raster_v2_kernel(const float* __restrict__ C, int T,
                                  const int* __restrict__ bounds,
-                                 int tri_block,
-                                 const bool* __restrict__ skip_if,
-                                 int* __restrict__ out, int width,
-                                 int row_tile, int* __restrict__ work) {
-  if (skip_if != nullptr && *skip_if) return;
+                                 int tri_block, int* __restrict__ out,
+                                 int width, int row_tile,
+                                 int* __restrict__ work) {
   const int tile = blockIdx.x;
   if (tile == 0 && threadIdx.x == 0) atomicAdd(work + 1, 1);
   const int t_lo = bounds[2 * tile] * tri_block;
   const int t_hi = min(bounds[2 * tile + 1] * tri_block, T);
-  raster_tile<false>(C, T, max(t_hi - t_lo, 0), V2Src{t_lo}, out, width,
-                     row_tile);
+  raster_tile<true, false>(C, T, max(t_hi - t_lo, 0), V2Src{t_lo}, out,
+                           width, row_tile);
 }
 
 // C: [11, T] row-major (9 edge coefficients, validity, original id as
-// f32), columns in sorted order. lo_blk, nblk_s: [n_tiles]. long2: [2] =
-// (long_lo, n_lblk). fits: device bool. out: [H * W].
+// f32), columns in sorted order, in blocks of tri_block. lo_blk, nblk_s:
+// [n_tiles]. long2: [2] = (long_lo, n_lblk). out: [H * W].
 __global__ void raster_v3_kernel(const float* __restrict__ C, int T,
                                  const int* __restrict__ lo_blk,
                                  const int* __restrict__ nblk_s,
                                  const int* __restrict__ long2,
-                                 const bool* __restrict__ fits,
-                                 int* __restrict__ out, int width,
-                                 int px_tile, int tri_block, int s_blocks,
-                                 int l_blocks, int* __restrict__ work) {
-  if (!*fits) return;
-  __shared__ float sm[11 * CHUNK3];
+                                 int tri_block, int* __restrict__ out,
+                                 int width, int row_tile,
+                                 int* __restrict__ work) {
   const int tile = blockIdx.x;
   if (tile == 0 && threadIdx.x == 0) atomicAdd(work + 2, 1);
-  const int n_blocks = T / tri_block;
-  const int lo = lo_blk[tile];
-  const int n_s = nblk_s[tile];
-  const int long_lo = long2[0];
-  const int n_l = long2[1];
-  const int big = T + 1;
-  float px[PIX3], py[PIX3];
-  int best[PIX3];
-#pragma unroll
-  for (int j = 0; j < PIX3; ++j) {
-    const int p = threadIdx.x + j * blockDim.x;
-    const int idx = tile * px_tile + (p < px_tile ? p : 0);
-    px[j] = (float)(idx % width);
-    py[j] = (float)(idx / width);
-    best[j] = big;
-  }
-  for (int k = 0; k < s_blocks + l_blocks; ++k) {
-    // The same for every thread of the block, so the barriers below are
-    // reached by all or by none.
-    const bool active = k < s_blocks ? k < n_s : k - s_blocks < n_l;
-    if (!active) continue;
-    int blk = k < s_blocks ? lo + k : long_lo + (k - s_blocks);
-    blk = min(max(blk, 0), n_blocks - 1);
-    for (int off = 0; off < tri_block; off += CHUNK3) {
-      const int n = min(CHUNK3, tri_block - off);
-      const int base = blk * tri_block + off;
-      __syncthreads();   // the previous pass is done with the staged chunk
-      for (int c = threadIdx.x; c < n; c += blockDim.x) {
-#pragma unroll
-        for (int r = 0; r < 11; ++r) sm[r * CHUNK3 + c] = C[r * T + base + c];
-      }
-      __syncthreads();
-      for (int c = 0; c < n; ++c) {
-        if (!(sm[9 * CHUNK3 + c] > 0.0f)) continue;
-        const float a0 = sm[0 * CHUNK3 + c], b0 = sm[1 * CHUNK3 + c];
-        const float c0 = sm[2 * CHUNK3 + c], a1 = sm[3 * CHUNK3 + c];
-        const float b1 = sm[4 * CHUNK3 + c], c1 = sm[5 * CHUNK3 + c];
-        const float a2 = sm[6 * CHUNK3 + c], b2 = sm[7 * CHUNK3 + c];
-        const float c2 = sm[8 * CHUNK3 + c];
-        const int id = (int)sm[10 * CHUNK3 + c];
-#pragma unroll
-        for (int j = 0; j < PIX3; ++j) {
-          const bool in = (edge_v2(px[j], py[j], a0, b0, c0) >= EPS)
-                        & (edge_v2(px[j], py[j], a1, b1, c1) >= EPS)
-                        & (edge_v2(px[j], py[j], a2, b2, c2) >= EPS);
-          if (in) best[j] = min(best[j], id);
-        }
-      }
-    }
-  }
-  int* o = out + (size_t)tile * px_tile;
-#pragma unroll
-  for (int j = 0; j < PIX3; ++j) {
-    const int p = threadIdx.x + j * blockDim.x;
-    if (p < px_tile) o[p] = best[j] > T ? -1 : best[j];
-  }
+  const int n_s = max(nblk_s[tile], 0);
+  const int n_l = max(long2[1], 0);
+  raster_tile<false, false>(
+      C, T, (n_s + n_l) * tri_block,
+      V3Src{lo_blk[tile], n_s, long2[0], tri_block, T / tri_block}, out,
+      width, row_tile);
 }
 
-// Threads of a v4 / v2 block: one warp per 2 x 64 pixels of the tile.
+// Threads of a block: one warp per 2 x 64 pixels of the tile.
 int tile_threads(int row_tile, int width) {
   return 32 * ((row_tile + WARP_ROWS - 1) / WARP_ROWS)
        * ((width + WARP_COLS - 1) / WARP_COLS);
@@ -522,28 +482,23 @@ int raster_v4_launch(const float* C, int T, const int* lo_pos,
 }
 
 int raster_v2_launch(const float* C, int T, const int* bounds,
-                     int tri_block, const bool* skip_if, int* out,
-                     int height, int width, int row_tile, int* work,
-                     void* stream) {
+                     int tri_block, int* out, int height, int width,
+                     int row_tile, int* work, void* stream) {
   const int threads = tile_threads(row_tile, width);
   if (threads > 1024) return (int)cudaErrorInvalidConfiguration;
   raster_v2_kernel<<<height / row_tile, threads, 0, (cudaStream_t)stream>>>(
-      C, T, bounds, tri_block, skip_if, out, width, row_tile, work);
+      C, T, bounds, tri_block, out, width, row_tile, work);
   return (int)cudaGetLastError();
 }
 
 int raster_v3_launch(const float* C, int T, const int* lo_blk,
-                     const int* nblk_s, const int* long2, const bool* fits,
+                     const int* nblk_s, const int* long2, int tri_block,
                      int* out, int height, int width, int row_tile,
-                     int tri_block, int s_blocks, int l_blocks, int* work,
-                     void* stream) {
-  const int px_tile = row_tile * width;
-  const int n_tiles = (height * width) / px_tile;
-  int threads = (px_tile + PIX3 - 1) / PIX3;
-  threads = ((threads + 31) / 32) * 32;
-  raster_v3_kernel<<<n_tiles, threads, 0, (cudaStream_t)stream>>>(
-      C, T, lo_blk, nblk_s, long2, fits, out, width, px_tile, tri_block,
-      s_blocks, l_blocks, work);
+                     int* work, void* stream) {
+  const int threads = tile_threads(row_tile, width);
+  if (threads > 1024) return (int)cudaErrorInvalidConfiguration;
+  raster_v3_kernel<<<height / row_tile, threads, 0, (cudaStream_t)stream>>>(
+      C, T, lo_blk, nblk_s, long2, tri_block, out, width, row_tile, work);
   return (int)cudaGetLastError();
 }
 

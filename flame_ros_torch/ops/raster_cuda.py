@@ -10,16 +10,19 @@ Counterpart of `flame_ros_tpu/ops/raster_pallas.py`:
   VMEM slab) and its fallback to v2 have no counterpart: both branches
   of its `lax.cond` compute the same id buffer;
 - `rasterize_tri_ids_v3` replaces `rasterize_tri_ids_pallas_v3`
-  (raster_pallas.py:180-315): the same device sort, then per tile at
-  most `s_blocks` blocks of short triangles and `l_blocks` shared blocks
-  of long ones, with a fallback to v2 when they do not hold. No engine
-  path reaches it, as in the JAX package (`pallas_raster_kernel="v3"`
-  runs v2);
+  (raster_pallas.py:180-315): the same device sort in blocks of
+  `tri_block`, then per tile all of its short blocks and all the shared
+  long blocks. The TPU kernel's block budgets (`s_blocks`, `l_blocks`,
+  the static length of a grid axis) and its fallback to v2 have no
+  counterpart: where the budgets hold the candidate set is the same, and
+  where they overflow the whole block walk gives the id buffer that the
+  fallback gives. No engine path reaches it, as in the JAX package
+  (`pallas_raster_kernel="v3"` runs v2);
 - `rasterize_tri_ids_v2` replaces `rasterize_tri_ids_pallas`
   (raster_pallas.py:27-147): per-tile contiguous triangle-block ranges.
 
 The kernels are in `csrc/raster.cu` (its header note says what bounds
-them on the card and how the design answers it: v4 and v2 stage their
+them on the card and how the design answers it: all three stage their
 candidates in chunks of `STAGE_CHUNK` and cull them against the block's
 and each warp's pixels before testing). They are compiled with nvcc at
 first use into `csrc/build/` and loaded with ctypes; the build is redone
@@ -32,9 +35,9 @@ range logic and edge-function evaluation order, so the id buffers agree
 bit for bit.
 
 Launch counts: each wrapper has a `launches` integer that counts its
-kernel launches. The kernels also count, in a small device tensor
-(`work_counters`), the launches that did the work — the v3 -> v2
-fallback launches both kernels and exactly one of them works.
+kernel launches, one per call. The kernels also count their launches on
+the device (`work_counters`), so a run shows which kernel did the raster
+work without reading the wrappers.
 """
 from __future__ import annotations
 
@@ -56,7 +59,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 OFF = 1e7          # class offset of the v4 sort key
 EPS = -1e-3        # inside-test tolerance of the edge functions
-STAGE_CHUNK = 256  # candidates v4 and v2 stage per pass (CH in raster.cu)
+STAGE_CHUNK = 256  # candidates a kernel stages per pass (CH in raster.cu)
 
 _lock = threading.Lock()
 _lib = None
@@ -110,11 +113,10 @@ def load(path: str):
     lib.raster_v4_launch.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci, vp,
                                      vp]
     lib.raster_v2_launch.restype = ci
-    lib.raster_v2_launch.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci, ci, vp,
-                                     vp]
+    lib.raster_v2_launch.argtypes = [vp, ci, vp, ci, vp, ci, ci, ci, vp, vp]
     lib.raster_v3_launch.restype = ci
-    lib.raster_v3_launch.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, ci, ci,
-                                     ci, ci, ci, vp, vp]
+    lib.raster_v3_launch.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, ci,
+                                     vp, vp]
     return lib
 
 
@@ -130,7 +132,8 @@ WORK_SLOTS = ("v4", "v2", "v3")
 
 
 def work_counters(device) -> torch.Tensor:
-    """Device int32 [3]: launches of (v4, v2, v3) that did the work."""
+    """Device int32 [3]: launches of (v4, v2, v3), counted by the
+    kernels."""
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -246,21 +249,19 @@ def v4_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
 
 
 def v3_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
-             tri_block: int, s_blocks: int, l_blocks: int,
-             long_thresh: float):
-    """The v3 wrapper's device-side preparation (raster_pallas.py:225-283).
+             tri_block: int, long_thresh: float):
+    """The v3 wrapper's device-side preparation (raster_pallas.py:225-273,
+    without the budgets).
 
     Returns (C [11, T] sorted slab = 9 edge coefficients, validity and
     original id as f32; lo_blk [n_tiles] int32, the tile's first short
     block; nblk_s [n_tiles] int32, its number of short blocks; long2 [2]
-    int32 = (long_lo, n_lblk), the shared long blocks; fits [] bool;
-    (B, n_blocks, sb, lb), the block size, block count and the two block
-    budgets clipped to the block count)."""
+    int32 = (long_lo, n_lblk), the shared long blocks; B, the block size,
+    which divides T)."""
     T = tris.shape[0]
     B = min(tri_block, T)
     if T % B:
         B = T
-    n_blocks = T // B
     C, n_short, n_live, lo_pos, hi_pos = _class_sort(
         vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
         long_thresh=long_thresh)
@@ -270,11 +271,9 @@ def v3_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
     long_lo = torch.div(n_short, B, rounding_mode="floor")
     n_lblk = torch.clamp(torch.div(n_live + B - 1, B, rounding_mode="floor")
                          - long_lo, min=0)
-    sb, lb = min(s_blocks, n_blocks), min(l_blocks, n_blocks)
-    fits = (torch.max(nblk_s) <= sb) & (n_lblk <= lb)
     long2 = torch.stack([long_lo, n_lblk]).to(torch.int32).contiguous()
     return (C, lo_blk.to(torch.int32).contiguous(), nblk_s.contiguous(),
-            long2, fits, (B, n_blocks, sb, lb))
+            long2, B)
 
 
 def v2_setup(vtx_pos, tris, tri_valid, *, height: int, width: int,
@@ -403,24 +402,23 @@ def rasterize_tri_ids_v2_ref(vtx_pos, tris, tri_valid, *, height: int,
                     width=width, row_tile=row_tile)
 
 
-def _v3_eval(C, lo_blk, nblk_s, long2, blocks, *, T, height, width,
-             row_tile):
-    """Plain v3 evaluation given the setup: per tile, its active short
-    blocks lo_blk + k (k < nblk_s) and the shared long blocks long_lo + k
-    (k < n_lblk), block indices clipped to the block range as the Pallas
-    index map does; (x*a + y*b) + c, the lowest original id wins."""
-    B, n_blocks, sb, lb = blocks
+def _v3_eval(C, lo_blk, nblk_s, long2, B, *, T, height, width, row_tile):
+    """Plain v3 evaluation given the setup: per tile, all of its short
+    blocks lo_blk + k (k < nblk_s) and all the shared long blocks
+    long_lo + k (k < n_lblk), block indices clipped to the block range as
+    the Pallas index map does; (x*a + y*b) + c, the lowest original id
+    wins."""
+    n_blocks = T // B
     dev = C.device
     px_tile = row_tile * width
     n_tiles = (height * width) // px_tile
     long_lo, n_lblk = long2.tolist()
-    lblks = [min(max(long_lo + k, 0), n_blocks - 1)
-             for k in range(min(lb, n_lblk))]
+    lblks = [min(max(long_lo + k, 0), n_blocks - 1) for k in range(n_lblk)]
     out = torch.full((n_tiles, px_tile), -1, dtype=torch.int32, device=dev)
     pidx = torch.arange(px_tile, device=dev)
     for i, (lo, ns) in enumerate(zip(lo_blk.tolist(), nblk_s.tolist())):
         blks = [min(max(lo + k, 0), n_blocks - 1)
-                for k in range(min(sb, ns))] + lblks
+                for k in range(ns)] + lblks
         if not blks:
             continue
         cols = torch.cat([torch.arange(k * B, (k + 1) * B, device=dev)
@@ -442,19 +440,15 @@ def _v3_eval(C, lo_blk, nblk_s, long2, blocks, *, T, height, width,
 
 def rasterize_tri_ids_v3_ref(vtx_pos, tris, tri_valid, *, height: int,
                              width: int, row_tile: int = 2,
-                             tri_block: int = 128, s_blocks: int = 5,
-                             l_blocks: int = 4, long_thresh: float = 64.0):
-    """Plain PyTorch version of the v3 kernel, with its v2 fallback."""
+                             tri_block: int = 128, long_thresh: float = 64.0):
+    """Plain PyTorch version of the v3 kernel: every block a tile needs,
+    no budget, no fallback."""
     _check(vtx_pos, tris, tri_valid, height, width, row_tile)
-    C, lo_blk, nblk_s, long2, fits, blocks = v3_setup(
+    C, lo_blk, nblk_s, long2, B = v3_setup(
         vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
-        tri_block=tri_block, s_blocks=s_blocks, l_blocks=l_blocks,
-        long_thresh=long_thresh)
-    if bool(fits):
-        return _v3_eval(C, lo_blk, nblk_s, long2, blocks, T=tris.shape[0],
-                        height=height, width=width, row_tile=row_tile)
-    return rasterize_tri_ids_v2_ref(vtx_pos, tris, tri_valid, height=height,
-                                    width=width)
+        tri_block=tri_block, long_thresh=long_thresh)
+    return _v3_eval(C, lo_blk, nblk_s, long2, B, T=tris.shape[0],
+                    height=height, width=width, row_tile=row_tile)
 
 
 def rasterize_tri_ids_v4_ref(vtx_pos, tris, tri_valid, *, height: int,
@@ -480,27 +474,9 @@ def _contiguous(**tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_v2(C, bounds, B, skip_if, out, *, T, height, width, row_tile):
-    lib = _get_lib()
-    _contiguous(C=C, bounds=bounds, out=out)
-    work = work_counters(out.device)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = lib.raster_v2_launch(
-        C.data_ptr(), T, bounds.data_ptr(), B,
-        skip_if.data_ptr() if skip_if is not None else None,
-        out.data_ptr(), height, width, row_tile, work.data_ptr(), stream)
-    rasterize_tri_ids_v2.launches += 1
-    if err != 0:
-        raise RuntimeError(f"raster_v2 launch failed: cudaError {err}")
-
-
-def _check_cuda(vtx_pos, height, width, row_tile, *, v3=False):
-    # Threads per block: v3 one per 4 pixels of the tile; v4 and v2 one
-    # warp per 2 rows x 64 pixels. At most 1024 either way.
-    if v3:
-        threads = -(-row_tile * width // 4)
-    else:
-        threads = 32 * -(-row_tile // 2) * -(-width // 64)
+def _check_cuda(vtx_pos, height, width, row_tile):
+    # Threads per block: one warp per 2 rows x 64 pixels, at most 1024.
+    threads = 32 * -(-row_tile // 2) * -(-width // 64)
     if threads > 1024:
         raise ValueError(f"tile of {row_tile}x{width} pixels needs "
                          f"{threads} threads a block, over 1024")
@@ -519,14 +495,21 @@ def rasterize_tri_ids_v2(vtx_pos, tris, tri_valid, *, height: int,
             row_tile=row_tile, tri_block=tri_block)
     _check(vtx_pos, tris, tri_valid, height, width, row_tile)
     _check_cuda(vtx_pos, height, width, row_tile)
-    T = tris.shape[0]
     C, bounds, B = v2_setup(vtx_pos, tris, tri_valid, height=height,
                             width=width, row_tile=row_tile,
                             tri_block=tri_block)
     out = torch.empty(height * width, dtype=torch.int32,
                       device=vtx_pos.device)
-    _launch_v2(C, bounds, B, None, out, T=T, height=height, width=width,
-               row_tile=row_tile)
+    _contiguous(C=C, bounds=bounds)
+    lib = _get_lib()
+    work = work_counters(out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = lib.raster_v2_launch(
+        C.data_ptr(), tris.shape[0], bounds.data_ptr(), B, out.data_ptr(),
+        height, width, row_tile, work.data_ptr(), stream)
+    rasterize_tri_ids_v2.launches += 1
+    if err != 0:
+        raise RuntimeError(f"raster_v2 launch failed: cudaError {err}")
     return out.reshape(height, width)
 
 
@@ -562,46 +545,32 @@ def rasterize_tri_ids_v4(vtx_pos, tris, tri_valid, *, height: int,
 
 def rasterize_tri_ids_v3(vtx_pos, tris, tri_valid, *, height: int,
                          width: int, row_tile: int = 2, tri_block: int = 128,
-                         s_blocks: int = 5, l_blocks: int = 4,
                          long_thresh: float = 64.0):
-    """Triangle-id buffer [H, W] int32 by the v3 kernel, falling back to
-    the v2 kernel on the device when a tile needs more than s_blocks
-    short blocks or the long triangles more than l_blocks. CPU tensors
+    """Triangle-id buffer [H, W] int32 by the v3 kernel (every block of
+    `tri_block` sorted columns that a tile needs, no budget). CPU tensors
     run the plain version."""
     if vtx_pos.device.type == "cpu":
         return rasterize_tri_ids_v3_ref(
             vtx_pos, tris, tri_valid, height=height, width=width,
-            row_tile=row_tile, tri_block=tri_block, s_blocks=s_blocks,
-            l_blocks=l_blocks, long_thresh=long_thresh)
-    _check(vtx_pos, tris, tri_valid, height, width, 2)
+            row_tile=row_tile, tri_block=tri_block, long_thresh=long_thresh)
     _check(vtx_pos, tris, tri_valid, height, width, row_tile)
-    _check_cuda(vtx_pos, height, width, row_tile, v3=True)
-    _check_cuda(vtx_pos, height, width, 2)
-    T = tris.shape[0]
-    C, lo_blk, nblk_s, long2, fits, (B, _, sb, lb) = v3_setup(
+    _check_cuda(vtx_pos, height, width, row_tile)
+    C, lo_blk, nblk_s, long2, B = v3_setup(
         vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
-        tri_block=tri_block, s_blocks=s_blocks, l_blocks=l_blocks,
-        long_thresh=long_thresh)
-    fits = fits.contiguous()
+        tri_block=tri_block, long_thresh=long_thresh)
     out = torch.empty(height * width, dtype=torch.int32,
                       device=vtx_pos.device)
+    _contiguous(C=C, lo_blk=lo_blk, nblk_s=nblk_s, long2=long2)
     lib = _get_lib()
     work = work_counters(out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     err = lib.raster_v3_launch(
-        C.data_ptr(), T, lo_blk.data_ptr(), nblk_s.data_ptr(),
-        long2.data_ptr(), fits.data_ptr(), out.data_ptr(), height, width,
-        row_tile, B, sb, lb, work.data_ptr(), stream)
+        C.data_ptr(), tris.shape[0], lo_blk.data_ptr(), nblk_s.data_ptr(),
+        long2.data_ptr(), B, out.data_ptr(), height, width, row_tile,
+        work.data_ptr(), stream)
     rasterize_tri_ids_v3.launches += 1
     if err != 0:
         raise RuntimeError(f"raster_v3 launch failed: cudaError {err}")
-    # The fallback: v2 with its default tiling on the original order,
-    # which does the work only where v3 did not (fits is read on the
-    # device, never on the host).
-    C, bounds, B = v2_setup(vtx_pos, tris, tri_valid, height=height,
-                            width=width, row_tile=2, tri_block=512)
-    _launch_v2(C, bounds, B, fits, out, T=T, height=height, width=width,
-               row_tile=2)
     return out.reshape(height, width)
 
 

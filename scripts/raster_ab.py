@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B of the v4 and v2 raster kernels' design choices, on one GPU.
+"""A/B of the raster kernels' design choices, on one GPU.
 
     python3 scripts/raster_ab.py
 
@@ -9,9 +9,10 @@ cull (every warp tests every candidate that survived the block's cull) —
 and runs each on tiles of 2 rows, and the source as it is on tiles of 4
 rows too. On chip_smoke.py's phase-3 meshes it times each kernel on the
 card alone (chip_smoke.device_ms: launches queued back to back) after
-holding its output equal to the plain version. Prints one JSON line per
-mesh, variant and tile height, then the card's nvidia-smi name and power
-limit. The variant libraries are built into csrc/build/.
+holding its output equal to the plain version. The variants change the
+tile routine that v4, v2 and v3 share, so all three are timed. Prints one
+JSON line per mesh, variant and tile height, then the card's nvidia-smi
+name and power limit. The variant libraries are built into csrc/build/.
 """
 import json
 import os
@@ -62,7 +63,8 @@ def main():
         for variant, rt in runs:
             row = {"case": case, "variant": variant, "row_tile": rt}
             for kernel, ref in (("v4", rc.rasterize_tri_ids_v4_ref),
-                                ("v2", rc.rasterize_tri_ids_v2_ref)):
+                                ("v2", rc.rasterize_tri_ids_v2_ref),
+                                ("v3", rc.rasterize_tri_ids_v3_ref)):
                 fn = cs.bare_launch(rc, kernel, args, H, W, {},
                                     lib=libs[variant], rt=rt)
                 fn()

@@ -57,7 +57,20 @@ Phases, each printed as one line:
    and stop() closes both; (d) epipolar_mode="patch" and the truth
    harness (--pass-in-truth), each held against the JAX package's CPU
    run of the sequence; (e) the TUM and ASL loaders and CLI routes over
-   the same frames written as a TUM and an ASL tree.
+   the same frames written as a TUM and an ASL tree;
+8. tracking mode at VGA with the default FlameParams (no poses in: the
+   direct tracker and the keyframe pose graph estimate them; GT depth on
+   frame 0 only, plus the stats' confusion matrix): (a) phase 4's 60
+   frames through `run_offline_tracking` on the card — every frame
+   tracked, none failed, ATE, rmse, recall and coverage held against the
+   JAX package's CPU run of the sequence, v4 doing the raster work on
+   every frame; (b) the same frames with frames 24-30 replaced by white
+   flashes (`with_occlusion`) — every occluded frame fails and stays out
+   of the trajectory, the failure and relocalization counts against the
+   JAX run's and within the JAX test's bounds, the engine healthy. Each
+   run prints tracking ms/frame p50/p95 beside phase 4's, and
+   `track_frame` / `ring_relocalize` ms per call (CUDA events) and device
+   launches per call (profiler), each checked to make no host sync.
 
 Any failure exits non-zero. The line before the last is the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`; before
@@ -105,6 +118,27 @@ JAX_PATCH_VGA = {"idepth_rmse": 0.04369, "recall": 0.7381,
 JAX_TRUTH_VGA = {"idepth_rmse": 0.02795, "recall": 0.7657,
                  "coverage": 0.8405}
 JAX_BAND = {"idepth_rmse": 0.05, "recall": 0.02, "coverage": 0.02}
+# The JAX package on the CPU over the phase-4 sequence in tracking mode,
+# and with frames 24-30 occluded:
+#   JAX_PLATFORMS=cpu python -m flame_ros_tpu.frontends.offline_runner \
+#       --dataset synthetic --frames 60 --resolution vga \
+#       --pose-source tracking [--occlude 24:30]
+# Phase 8 holds the port to each: rmse, recall and coverage within
+# JAX_BAND, ATE within max(25 % relative, 1e-3 m).
+JAX_TRACK_VGA = {"frames": 60, "idepth_rmse": 0.04446, "recall": 0.7705,
+                 "coverage": 0.8796, "ate_rmse": 0.00105,
+                 "ate_rmse_sim3": 0.00104, "rpe_trans_rmse": 0.00119,
+                 "rpe_rot_rmse_deg": 0.0239, "track_failed_frames": 0,
+                 "relocalizations": 0}
+JAX_OCCLUDE_VGA = {"frames": 53, "idepth_rmse": 0.05073, "recall": 0.7564,
+                   "coverage": 0.8734, "ate_rmse": 0.00188,
+                   "ate_rmse_sim3": 0.00153, "rpe_trans_rmse": 0.00128,
+                   "rpe_rot_rmse_deg": 0.0261, "track_failed_frames": 7,
+                   "relocalizations": 0}
+OCCLUDED = (24, 30)
+# tests/test_tracking_recovery.py:141-142: a 7-frame occlusion fails at
+# least its 7 frames and recovers within 8 more.
+TRACK_FAILED_BOUNDS = (7, 15)
 # The TPU v3 kernel's defaults; the port's v3 takes tri_block and
 # long_thresh only (it has no block budgets).
 V3_DEFAULTS = {"tri_block": 128, "s_blocks": 5, "l_blocks": 4,
@@ -904,6 +938,208 @@ def live_frontend(seq, recs4, res4, params, cam, dev, out):
           / res4.mean_rmse)
 
 
+def device_events(fn):
+    """(device events, device-busy ms) of one call of fn, from
+    torch.profiler: kernels, copies and fills on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n, busy = 0, 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            n += e.count
+            for k in ("self_device_time_total", "self_cuda_time_total"):
+                v = getattr(e, k, None)
+                if v is not None:
+                    busy += v / 1e3
+                    break
+    return n, busy
+
+
+def no_sync(fn):
+    """Call fn with CUDA synchronizing operations made errors, so that a
+    host sync inside it fails the phase."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return True
+
+
+class CallTimer:
+    """Wraps a function of the nodelet module: each call between two CUDA
+    events and on the host clock (the time to launch it), its arguments
+    kept."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name = mod, name
+        self.fn = getattr(mod, name)
+        self.events, self.host_s, self.last = [], [], None
+
+    def __call__(self, *args, **kw):
+        import torch
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out = self.fn(*args, **kw)
+        b.record()
+        self.host_s.append(time.perf_counter() - t0)
+        self.events.append((a, b))
+        self.last = (args, kw)
+        return out
+
+    def __enter__(self):
+        setattr(self.mod, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def track_bands(res, ref, keys):
+    """A tracking run's distance from the JAX package's numbers (JAX_BAND;
+    ATE within max(25 % relative, 1e-3 m)) and whether those of `keys`
+    hold."""
+    diff, _ = jax_band(res, ref)
+    diff["ate_rmse"] = abs(res.ate_rmse - ref["ate_rmse"])
+    band = dict(JAX_BAND, ate_rmse=max(0.25 * ref["ate_rmse"], 1e-3))
+    return diff, all(diff[k] <= band[k] for k in keys)
+
+
+def tracking_path(seq, ms4, params, cam, dev, out):
+    """Phase 8 over phase 4's sequence `seq`, whose per-frame host ms
+    (steady frames) are ms4."""
+    import numpy as np
+    import torch
+    from flame_ros_torch.frontends import nodelet as nodelet_mod
+    from flame_ros_torch.frontends import offline_runner
+    from flame_ros_torch.frontends.nodelet import FlameNodelet
+    from flame_ros_torch.ops import raster_cuda as rc
+    n = len(seq)
+    summaries = {}
+    for name, occlude, ref in (("clean", None, JAX_TRACK_VGA),
+                               ("occluded", OCCLUDED, JAX_OCCLUDE_VGA)):
+        node = FlameNodelet(cam, params, pose_source="tracking",
+                            eval_gt_depth=True, trajectory_cap=0, device=dev)
+        assert node.engine.params.engine.pallas_raster_kernel == "v4"
+        frame_ms, process = [], node._process
+
+        def timed(frame, process=process, frame_ms=frame_ms):
+            # The frame's tracking, engine update and stats read (a sync).
+            t0 = time.perf_counter()
+            process(frame)
+            frame_ms.append((frame.img_id, (time.perf_counter() - t0) * 1e3))
+
+        node._process = timed
+        stats = []
+        node.on_stats.append(stats.append)
+        frames = offline_runner.synthetic_frames(seq)
+        if occlude:
+            frames = offline_runner.with_occlusion(frames, *occlude)
+        out_dir = os.path.join(out, f"tracking_{name}")
+        rc.reset_counters()
+        with CallTimer(nodelet_mod, "track_frame") as tf, \
+                CallTimer(nodelet_mod, "ring_relocalize") as rr:
+            res = offline_runner.run_offline_tracking(
+                frames, cam, params, out_dir=out_dir, device=dev, node=node)
+        launches, work = launch_counts(rc, dev)
+        ids = [i for i, _, _ in node.trajectory]
+        failed = [r["img_id"] for r in stats if r.get("tracking_failed")]
+        health = [r["health"] for r in stats if "health" in r]
+        assert res.frames_failed == 0 and node.engine.num_failed_frames == 0
+        assert len(health) == len(ids) and all(h == 1.0 for h in health)
+        assert launches["v4"] >= len(ids), launches
+        assert launches["v2"] == 0 and launches["v3"] == 0, launches
+        assert work == {"v4": launches["v4"], "v2": 0, "v3": 0}, work
+        if occlude:
+            occ = set(range(occlude[0], occlude[1] + 1))
+            assert occ <= set(failed), failed
+            assert not occ & set(ids), ids
+            lo, hi = TRACK_FAILED_BOUNDS
+            assert lo <= res.track_failed_frames <= hi, res
+            assert len(ids) + res.track_failed_frames == n
+        else:
+            assert res.frames_processed == n and ids == list(range(n)), \
+                (res, failed)
+            assert res.track_failed_frames == 0 and not failed, failed
+        # (b): ATE and rmse in the bands; recall and coverage recorded.
+        diff, ok = track_bands(res, ref, (
+            ("ate_rmse", "idepth_rmse") if occlude else
+            ("ate_rmse", "idepth_rmse", "recall", "coverage")))
+        assert ok, (name, res, diff)
+        # One track_frame and one ring_relocalize call, standalone at the
+        # run's last inputs: no host sync inside, launches per call.
+        args, kw = tf.last
+        no_sync(lambda: nodelet_mod.track_frame(*args, **kw))
+        tf_events, tf_busy = device_events(
+            lambda: nodelet_mod.track_frame(*args, **kw))
+        reloc = {}
+        if rr.last is not None:
+            rargs, rkw = rr.last
+            no_sync(lambda: nodelet_mod.ring_relocalize(*rargs, **rkw))
+            ev, busy = device_events(
+                lambda: nodelet_mod.ring_relocalize(*rargs, **rkw))
+            rms = rr.ms()
+            reloc = dict(ring_relocalize_calls=len(rms),
+                         ring_relocalize_ms_p50=pctl(np, rms, 50),
+                         ring_relocalize_ms_max=max(rms),
+                         ring_relocalize_host_ms_p50=pctl(
+                             np, [s * 1e3 for s in rr.host_s], 50),
+                         ring_relocalize_launches_per_call=ev,
+                         ring_relocalize_device_busy_ms=busy)
+        tms = tf.ms()
+        ok_ms = [m for i, m in frame_ms[5:] if i in set(ids)]
+        summaries[name] = dict(
+            frames=res.frames_processed, failed=res.frames_failed,
+            track_failed_frames=res.track_failed_frames,
+            relocalizations=res.relocalizations,
+            failed_ids=failed,
+            counts_equal_jax=(res.track_failed_frames
+                              == ref["track_failed_frames"]
+                              and res.relocalizations
+                              == ref["relocalizations"]),
+            ate_rmse=res.ate_rmse, ate_rmse_sim3=res.ate_rmse_sim3,
+            ate_rmse_raw=res.ate_rmse_raw, gt_path_length=res.gt_path_length,
+            rpe_trans_rmse=res.rpe_trans_rmse,
+            rpe_rot_rmse_deg=res.rpe_rot_rmse_deg,
+            rpe30_trans_rmse=res.rpe30_trans_rmse,
+            rpe30_rot_rmse_deg=res.rpe30_rot_rmse_deg,
+            mean_rmse=res.mean_rmse, mean_precision=res.mean_precision,
+            mean_recall=res.mean_recall, final_coverage=res.final_coverage,
+            final_abs_rel=res.final_abs_rel, final_delta1=res.final_delta1,
+            jax_cpu=ref, diff=diff,
+            tracking_ms_per_frame_p50=pctl(np, ok_ms, 50),
+            tracking_ms_per_frame_p95=pctl(np, ok_ms, 95),
+            main_path_ms_per_frame_p50=pctl(np, ms4, 50),
+            main_path_ms_per_frame_p95=pctl(np, ms4, 95),
+            track_frame_calls=len(tms),
+            track_frame_ms_p50=pctl(np, tms, 50),
+            track_frame_ms_p95=pctl(np, tms, 95),
+            track_frame_host_ms_p50=pctl(
+                np, [s * 1e3 for s in tf.host_s], 50),
+            track_frame_launches_per_call=tf_events,
+            track_frame_device_busy_ms=tf_busy,
+            track_frame_share_of_frame=(
+                pctl(np, tms, 50) / pctl(np, ok_ms, 50)),
+            no_host_sync=True, launches=launches, work=work, **reloc)
+        phase(f"tracking_path_{name}", **summaries[name])
+    return summaries
+
+
 def main():
     try:
         import torch
@@ -1218,6 +1454,9 @@ def main():
 
     # 7. the live frontend ---------------------------------------------
     live_frontend(seq, recs, res, params, VGA, dev, OUT)
+
+    # 8. tracking mode -------------------------------------------------
+    tracking_path(seq, steady, params, VGA, dev, OUT)
 
     # Result lines -----------------------------------------------------
     replaces = {"v4": "flame_ros_tpu/ops/raster_pallas.py:458",

@@ -228,16 +228,36 @@ class SyntheticSequence:
 
 def make_sequence(n_frames: int = 30, cam: Pinhole = QVGA,
                   motion: str = "strafe", fps: float = 30.0,
+                  texture_gain: float = 1.0,
+                  exposure_amp: float = 0.0,
+                  exposure_period: float = 50.0,
                   scene: str = "room", device=None) -> SyntheticSequence:
     """Render a posed sequence on `device` (the card unless the caller
-    asks for another device). GT depths and poses are exact. (The JAX
-    package's texture-gain and exposure stress knobs are not ported.)"""
+    asks for another device). GT depths and poses are exact in every
+    regime. Stress knobs, applied on the device in the JAX package's
+    order (contrast, then exposure, then the clip to [0, 255]):
+
+    - texture_gain: scales image contrast about mid-gray (1.0 = normal;
+      0.3 leaves ~7% of VGA pixels above the detector's gradient floor);
+    - exposure_amp r: per-frame affine brightness oscillation, gain
+      1 + r*sin(2*pi*i/period) and bias 30*r*sin(2*pi*i/period + 1.3)
+      (auto-exposure "hunting"; engine.zero_mean_ssd is the counter).
+    """
     dev = resolve_device(device)
     poses = make_trajectory(n_frames, motion, device=dev)
     imgs, deps = [], []
     for i in range(n_frames):
         g, d = render_frame(cam, poses.q[i], poses.t[i], scene)
-        imgs.append(torch.clamp(g, 0.0, 255.0))
+        if texture_gain != 1.0:
+            g = 127.5 + texture_gain * (g - 127.5)
+        if exposure_amp != 0.0:
+            ph = 2.0 * np.pi * i / exposure_period
+            gain = float(1.0 + exposure_amp * np.sin(ph))
+            bias = float(30.0 * exposure_amp * np.sin(ph + 1.3))
+            # In float64, as the JAX package's numpy does (its gain and
+            # bias are float64 scalars); rounded to float32 after the clip.
+            g = gain * g.to(torch.float64) + bias
+        imgs.append(torch.clamp(g, 0.0, 255.0).to(torch.float32))
         deps.append(d)
     return SyntheticSequence(
         cam=cam, images=torch.stack(imgs), depths=torch.stack(deps),

@@ -8,6 +8,9 @@ stats.txt column schema src/flame_offline_tum.cc:320-398):
 - true_pos: both valid -> error |xi_est - 1/depth_gt| accumulates;
 - false_pos: estimate without GT -> error |xi_est| accumulates;
 - false_neg: GT without estimate; true_neg: neither.
+
+Trajectory metrics for tracking mode (`align_trajectory`, `ate_rmse`,
+`rpe`) are host numpy in float64, copied from the JAX package's.
 """
 from __future__ import annotations
 
@@ -92,6 +95,118 @@ def depth_metrics(idepths, depth):
         out[f"delta{k}"] = torch.sum(
             torch.where(has, (ratio < thr).to(torch.float32), zero)) / n
     return out
+
+
+def align_trajectory(est_t: np.ndarray, gt_t: np.ndarray,
+                     with_scale: bool = False):
+    """Umeyama/Horn closed-form trajectory alignment.
+
+    est_t, gt_t: [N, 3] camera positions. Returns (s, R, t) minimizing
+    || gt - (s * R @ est + t) ||^2 over rotations R (and uniform scale s
+    when with_scale, else s = 1 — the SE3/Horn variant).
+    """
+    est = np.asarray(est_t, np.float64)
+    gt = np.asarray(gt_t, np.float64)
+    mu_e = est.mean(axis=0)
+    mu_g = gt.mean(axis=0)
+    E = est - mu_e
+    G = gt - mu_g
+    C = G.T @ E / len(est)
+    U, S, Vt = np.linalg.svd(C)
+    d = np.sign(np.linalg.det(U) * np.linalg.det(Vt))
+    D = np.diag([1.0, 1.0, d])
+    R = U @ D @ Vt
+    if with_scale:
+        var_e = (E ** 2).sum() / len(est)
+        s = float(np.trace(np.diag(S) @ D) / max(var_e, 1e-12))
+    else:
+        s = 1.0
+    t = mu_g - s * R @ mu_e
+    return s, R, t
+
+
+def ate_rmse(est_t: np.ndarray, gt_t: np.ndarray,
+             align: str = "se3") -> float:
+    """Absolute trajectory error RMSE, the TUM RGB-D benchmark's
+    evaluate_ate protocol: align estimated positions to GT, then RMSE of
+    the residuals.
+
+    align: "se3" (Horn rotation+translation — scale errors count, since
+    the monocular scale is anchored by the bootstrap depth), "sim3"
+    (+uniform scale: drift with scale removed), or "none" (origin-aligned
+    raw residuals — both trajectories start at identity).
+    """
+    est = np.asarray(est_t, np.float64)
+    gt = np.asarray(gt_t, np.float64)
+    if align == "none":
+        res = gt - est
+    else:
+        s, R, t = align_trajectory(est, gt, with_scale=(align == "sim3"))
+        res = gt - (s * (R @ est.T).T + t)
+    return float(np.sqrt(np.mean(np.sum(res ** 2, axis=1))))
+
+
+def _rotmats_from_quats(q: np.ndarray) -> np.ndarray:
+    """[N, 4] (w,x,y,z) unit quaternions -> [N, 3, 3] rotation matrices
+    (numpy, float64)."""
+    q = np.asarray(q, np.float64)
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    w, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    R = np.empty((len(q), 3, 3))
+    R[:, 0, 0] = 1 - 2 * (y * y + z * z)
+    R[:, 0, 1] = 2 * (x * y - w * z)
+    R[:, 0, 2] = 2 * (x * z + w * y)
+    R[:, 1, 0] = 2 * (x * y + w * z)
+    R[:, 1, 1] = 1 - 2 * (x * x + z * z)
+    R[:, 1, 2] = 2 * (y * z - w * x)
+    R[:, 2, 0] = 2 * (x * z - w * y)
+    R[:, 2, 1] = 2 * (y * z + w * x)
+    R[:, 2, 2] = 1 - 2 * (x * x + y * y)
+    return R
+
+
+def rpe(est_q: np.ndarray, est_t: np.ndarray,
+        gt_q: np.ndarray, gt_t: np.ndarray,
+        delta: int = 1) -> dict:
+    """Relative pose error over frame pairs (i, i+delta), the TUM RGB-D
+    benchmark's evaluate_rpe protocol: rotational RPE sees every
+    per-frame orientation error, which ATE on a short rotation-dominant
+    path does not.
+
+    Per pair: E_i = (P_gt_i^-1 P_gt_{i+d})^-1 (P_est_i^-1 P_est_{i+d});
+    translational error = ||trans(E_i)|| (metres), rotational error =
+    angle(rot(E_i)) (degrees). Inputs: [N, 4] (w,x,y,z) quats + [N, 3]
+    positions, camera-to-world, frame-aligned est/gt. Returns rmse,
+    mean, and max for both error families.
+    """
+    est_q, est_t = np.asarray(est_q), np.asarray(est_t, np.float64)
+    gt_q, gt_t = np.asarray(gt_q), np.asarray(gt_t, np.float64)
+    n = len(est_t)
+    if n != len(gt_t) or n < delta + 1:
+        raise ValueError(f"need matched trajectories with > delta={delta} "
+                         f"poses, got {n} est / {len(gt_t)} gt")
+    Re, Rg = _rotmats_from_quats(est_q), _rotmats_from_quats(gt_q)
+    i, j = np.arange(n - delta), np.arange(delta, n)
+    # Relative motions P_i^-1 P_j: R_rel = R_i^T R_j, t_rel = R_i^T (t_j - t_i)
+    Re_rel = np.einsum("nba,nbc->nac", Re[i], Re[j])
+    te_rel = np.einsum("nba,nb->na", Re[i], est_t[j] - est_t[i])
+    Rg_rel = np.einsum("nba,nbc->nac", Rg[i], Rg[j])
+    tg_rel = np.einsum("nba,nb->na", Rg[i], gt_t[j] - gt_t[i])
+    # Error transform E = rel_gt^-1 rel_est
+    RE = np.einsum("nba,nbc->nac", Rg_rel, Re_rel)
+    tE = np.einsum("nba,nb->na", Rg_rel, te_rel - tg_rel)
+    t_err = np.linalg.norm(tE, axis=1)
+    cos = np.clip((np.trace(RE, axis1=1, axis2=2) - 1.0) / 2.0, -1.0, 1.0)
+    r_err = np.degrees(np.arccos(cos))
+
+    def rms(v):
+        return float(np.sqrt(np.mean(v ** 2)))
+
+    return {"trans_rmse": rms(t_err), "trans_mean": float(t_err.mean()),
+            "trans_max": float(t_err.max()),
+            "rot_rmse_deg": rms(r_err), "rot_mean_deg": float(r_err.mean()),
+            "rot_max_deg": float(r_err.max()), "delta": int(delta),
+            "pairs": int(n - delta)}
 
 
 @dataclass

@@ -19,9 +19,19 @@ Counterpart of `flame_ros_tpu/frontends/nodelet.py` with external poses
 
 ROS topics become callbacks (`on_mesh`, `on_idepth`, `on_stats`,
 `on_heartbeat`). Frames may be numpy arrays or tensors (on the engine's
-device they stay there). Pose estimation by direct tracking and bundle
-adjustment (`pose_source="tracking"`, `ba_refine=True`) are not ported
-yet: ROADMAP.md queue 1, items 11 and 12.
+device they stay there).
+
+With pose_source="tracking" the poses are estimated online (capability
+beyond the reference): direct alignment against the latest keyframe's
+dense idepth (`models/tracking.py::track_frame`) with a quality gate,
+constant-velocity coasting, keyframe-ring relocalization after repeated
+failures (`ring_relocalize`) and a windowed pose graph over keyframes
+(`models/pose_graph.py`). The tracker's solves run on the engine's
+device; each result comes back in one device-to-host copy, and the
+per-frame pose bookkeeping (a few quaternion products) is done on those
+host tensors. Each frame is uploaded and pyramided once: the tracker's
+4-level pyramid goes to `Flame.update(img_pyr=)`. Bundle adjustment
+(`ba_refine=True`) is not ported yet: ROADMAP.md queue 1, item 1.
 """
 from __future__ import annotations
 
@@ -40,6 +50,10 @@ from flame_ros_torch.eval.metrics import has_ground_truth
 from flame_ros_torch.geometry.camera import Pinhole
 from flame_ros_torch.geometry.se3 import SE3
 from flame_ros_torch.models.engine import Flame
+from flame_ros_torch.models.pose_graph import make_graph, optimize_pose_graph
+from flame_ros_torch.models.tracking import (TrackResult, ring_relocalize,
+                                             track_frame)
+from flame_ros_torch.ops.pyramid import build_pyramid
 from flame_ros_torch.streams.queue import ThreadSafeQueue
 from flame_ros_torch.utils.load_tracker import LoadTracker
 
@@ -55,17 +69,23 @@ class Health(enum.Enum):
 class InputFrame:
     img_id: int
     time: float
-    quat: np.ndarray      # (w, x, y, z) camera-to-world RDF
-    trans: np.ndarray
+    quat: Optional[np.ndarray]   # (w, x, y, z) camera-to-world RDF
+    trans: Optional[np.ndarray]  # (None for both in tracking mode)
     gray: object          # [H, W] numpy array or tensor
     depth: Optional[object] = None
     recv_time: float = field(default_factory=time_mod.perf_counter)
 
 
 class FlameNodelet:
-    """pose_source "external": frames arrive with poses (the reference's
-    tf lookups, or a dataset's ground truth). The engine runs on `device`
-    (the card unless the caller asks for another)."""
+    """pose_source:
+    - "external": frames arrive with poses (the reference's tf lookups, or
+      a dataset's ground truth);
+    - "tracking": poses are estimated online by direct alignment against
+      the latest keyframe's smoothed dense idepth, with a windowed pose
+      graph over keyframes. A depth map on the bootstrap frame fixes the
+      monocular scale; otherwise it is arbitrary.
+    The engine runs on `device` (the card unless the caller asks for
+    another)."""
 
     def __init__(self, cam: Pinhole, params: Optional[FlameParams] = None,
                  queue_size: int = 8,
@@ -75,17 +95,15 @@ class FlameNodelet:
                  trajectory_cap: int = 100_000, device=None):
         if pose_source not in ("external", "tracking"):
             raise ValueError(pose_source)
-        if pose_source == "tracking":
-            raise NotImplementedError(
-                "pose_source='tracking' (direct tracking and the pose "
-                "graph) is not ported yet: ROADMAP.md queue 1, item 11")
         if ba_refine:
             raise NotImplementedError(
                 "ba_refine (windowed bundle adjustment) is not ported yet: "
-                "ROADMAP.md queue 1, item 12")
+                "ROADMAP.md queue 1, item 1")
         self.pose_source = pose_source
         # Fold the GT confusion matrix into the stats when a frame
-        # carries a depth map (offline evaluation harness).
+        # carries a depth map (offline evaluation harness; in tracking
+        # mode the depth is otherwise used only for the scale bootstrap
+        # on the first frame — it never feeds estimation).
         self.eval_gt_depth = eval_gt_depth
         # (img_id, time, pose) per processed frame; trajectory_cap=0 keeps
         # them all, else a rolling window.
@@ -116,22 +134,46 @@ class FlameNodelet:
         self._last_success_time = time_mod.perf_counter()
         self._t_start = time_mod.perf_counter()
         self.health = Health.READY
-        # Promote the next successful frame to a poseframe when a
-        # scheduled poseframe fails in the engine.
+        # Promote the next successful frame to a poseframe: set when a
+        # scheduled poseframe fails (in the engine, or in tracking mode
+        # its pose), and when tracking recovers from an outage (the aged
+        # tracking keyframe needs immediate replacement).
         self._force_pf = False
+
+        # Tracking-mode state (poses are host tensors).
+        self._track_ref = None        # (pyr4, idepth, T_w_ref)
+        self._refresh_pending = False  # refresh track ref next processed frame
+        self._last_rel: Optional[SE3] = None  # previous T_rc (motion model)
+        self._prev_rel: Optional[SE3] = None
+        self._pg_nodes: list[tuple[int, SE3]] = []   # (img_id, pose)
+        self._pg_edges: list[tuple[int, int, SE3]] = []
+        self.track_costs: list[float] = []
+        # Failure detection and recovery: a diverged alignment fails the
+        # frame (reference semantics for unresolvable poses,
+        # flame_nodelet.cc:637-642, tracked_image_stream.cc:182-185)
+        # instead of poisoning the map.
+        self._track_fail_streak = 0    # consecutive rejected frames
+        self._last_track: Optional[TrackResult] = None  # on the host
+        self.n_track_failed_frames = 0  # frames dropped by the gate
+        self.n_relocalizations = 0      # successful ring re-searches
+        self._recovered = False  # refresh track ref right after recovery
+        self._pending_cur_pyr = None
 
     # -- producer side (the "subscriber callback") -----------------------
     def push_frame(self, img_id: int, time: float, quat=None, trans=None,
                    gray=None, depth=None) -> bool:
         """Thread-safe ingest; drops the frame when the queue is full
-        (reference drop-newest semantics). Returns False if dropped."""
-        if quat is None or trans is None:
+        (reference drop-newest semantics). Returns False if dropped.
+        quat/trans may be None in tracking mode."""
+        if self.pose_source == "external" and (quat is None or trans is None):
             raise ValueError("external pose_source requires quat/trans")
         if not isinstance(gray, torch.Tensor):
             gray = np.asarray(gray, np.float32)
         return self.queue.push(InputFrame(
-            img_id=img_id, time=time, quat=np.asarray(quat, np.float32),
-            trans=np.asarray(trans, np.float32), gray=gray, depth=depth))
+            img_id=img_id, time=time,
+            quat=None if quat is None else np.asarray(quat, np.float32),
+            trans=None if trans is None else np.asarray(trans, np.float32),
+            gray=gray, depth=depth))
 
     def poseframe_callback(self, pf_ids, pf_poses: SE3):
         """External pose-graph update (reference poseframeCallback): infer
@@ -193,6 +235,181 @@ class FlameNodelet:
         ang = float(torch.linalg.vector_norm(rel.log()[3:]))
         return float(np.degrees(ang)) / dt
 
+    def _track_ok(self, res: TrackResult) -> bool:
+        """Quality gate on a direct-alignment result (on the host). Two
+        failure signatures: a high residual (occlusion, flash, blur: the
+        cost saturates toward the 3*huber_delta clip) and a degenerate
+        near-zero residual with no observable points (a textureless
+        reference tracks anything at cost 0)."""
+        ptp = self.params.pose_tracking
+        cost = float(res.final_cost)
+        n_val = int(res.n_valid)
+        n_inl = int(res.n_inliers)
+        if not np.isfinite(cost):
+            return False
+        if n_val < ptp.min_valid_points:
+            return False
+        if cost > ptp.fail_cost:
+            return False
+        if n_inl < ptp.min_inlier_frac * n_val:
+            return False
+        return True
+
+    def _track(self, ref_pyr, ref_idepth, cur_pyr, init: SE3) -> TrackResult:
+        """track_frame at the nodelet's settings, read back to the host."""
+        return track_frame(ref_pyr, ref_idepth, cur_pyr, init.q, init.t,
+                           cam=self.cam, num_levels=4).to_host()
+
+    def _try_relocalize(self, cur_pyr, guess: SE3) -> Optional[SE3]:
+        """Re-search the keyframe ring for the current frame's pose
+        (models/tracking.py::ring_relocalize). Returns a world-pose
+        hypothesis T_w_c, or None if no keyframe yields a trusted
+        coarse-cost match. The per-slot results and the ring's poses come
+        back in one device-to-host copy."""
+        ptp = self.params.pose_tracking
+        st = self.engine.state
+        rq, rt, rcost, rn = ring_relocalize(
+            st.kf_pyrs, st.kf_q, st.kf_t, st.kf_valid,
+            st.feat.uv_ref, st.feat.mu, st.feat.valid, st.feat.kf_idx,
+            cur_pyr, guess.q, guess.t, cam=self.cam,
+            step=ptp.reloc_step, n_steps=ptp.reloc_n_steps,
+            iters=ptp.reloc_iters)
+        host = torch.cat([rcost[:, None], rn[:, None].to(torch.float32),
+                          rq, rt, st.kf_q, st.kf_t], dim=1).cpu()
+        rcost, rn = host[:, 0].numpy(), host[:, 1].numpy()
+        j = int(np.argmin(rcost))
+        if (not np.isfinite(rcost[j]) or rcost[j] > ptp.max_reloc_cost
+                or rn[j] < 24):
+            return None
+        T_jc = SE3(host[j, 2:6], host[j, 6:9])
+        T_wj = SE3(host[j, 9:13], host[j, 13:16])
+        return T_wj @ T_jc.inverse()
+
+    def _estimate_pose(self, frame: InputFrame) -> Optional[SE3]:
+        """Tracking mode: direct alignment against the current keyframe.
+
+        Returns None when the frame's pose cannot be resolved (the gate
+        rejected it and recovery did not land): the caller fails the
+        frame — no engine.update, no trajectory entry (reference
+        frame-drop semantics). While failing, the constant-velocity model
+        keeps coasting so the re-track seed advances with the motion;
+        after `relocalize_after` consecutive rejections each new frame
+        also re-searches the keyframe ring before giving up."""
+        dev = self.engine.device
+        cur_pyr = build_pyramid(self.engine._on_device(frame.gray), 4)
+        if self._track_ref is None:
+            # Bootstrap: sensor depth, if any, fixes the monocular scale;
+            # otherwise a flat prior (scale arbitrary until then).
+            if frame.depth is not None and has_ground_truth(frame.depth):
+                d = self.engine._on_device(frame.depth)
+                idepth = torch.where(d > 0, 1.0 / torch.clamp(d, min=1e-6),
+                                     torch.full_like(d, float("nan")))
+            else:
+                idepth = torch.full(cur_pyr.shape[1:],
+                                    self.params.engine.init_idepth,
+                                    dtype=torch.float32, device=dev)
+            self._track_ref = (cur_pyr, idepth, SE3.identity())
+            self._last_rel = SE3.identity()
+            return SE3.identity()
+        ref_pyr, ref_idepth, T_w_ref = self._track_ref
+        ptp = self.params.pose_tracking
+        # Constant-velocity motion model: extrapolate one inter-frame step
+        # beyond the last solution (identity init fails at the maximum
+        # keyframe age, where the baseline exceeds the coarse level's
+        # capture range).
+        init = self._last_rel or SE3.identity()
+        if self._prev_rel is not None and self._last_rel is not None:
+            step = self._prev_rel.inverse() @ self._last_rel
+            init = self._last_rel @ step
+        res = self._track(ref_pyr, ref_idepth, cur_pyr, init)
+        # Gate only once the engine has a real map (before it the ref
+        # idepth is a bootstrap prior whose cost scale proves nothing).
+        gate_active = self.engine.num_poseframes > 0
+        accepted = res if (not gate_active or self._track_ok(res)) else None
+
+        if accepted is None and gate_active \
+                and self._track_fail_streak + 1 >= ptp.relocalize_after:
+            # Recovery: re-search the keyframe ring from the coasted
+            # world-pose guess, re-track from the winning hypothesis and
+            # re-apply the same gate.
+            guess = T_w_ref @ init.inverse()
+            T_wc = self._try_relocalize(cur_pyr, guess)
+            if T_wc is not None:
+                init2 = T_wc.inverse() @ T_w_ref
+                res2 = self._track(ref_pyr, ref_idepth, cur_pyr, init2)
+                if self._track_ok(res2):
+                    accepted = res2
+                    self.n_relocalizations += 1
+
+        self._last_track = accepted if accepted is not None else res
+        if accepted is None:
+            # Coast: commit the extrapolated step as if it had been
+            # observed, so the next frame's init keeps advancing at
+            # constant velocity instead of freezing at the last good pose.
+            self._track_fail_streak += 1
+            self.n_track_failed_frames += 1
+            self._prev_rel, self._last_rel = self._last_rel, init
+            return None
+        self.track_costs.append(float(accepted.final_cost))
+        T_rc = SE3(accepted.q, accepted.t)
+        if self._track_fail_streak > 0:
+            # Recovery frame: the map went unobserved during the outage.
+            # Promote this frame to a poseframe, and refresh the tracking
+            # keyframe right after its engine update (the aged ref that
+            # survived the outage loses the track again within frames).
+            self._force_pf = True
+            self._recovered = True
+        self._track_fail_streak = 0
+        self._prev_rel = self._last_rel
+        self._last_rel = T_rc
+        self._pending_cur_pyr = cur_pyr
+        return T_w_ref @ T_rc.inverse()
+
+    def _refresh_track_ref(self, pose: SE3, cur_pyr=None):
+        """New tracking keyframe from the engine's smoothed dense idepth."""
+        if cur_pyr is None:
+            return
+        idepth = self.engine.get_inverse_depth_map()
+        if idepth is None or not np.isfinite(idepth).any():
+            return
+        self._track_ref = (cur_pyr, self.engine._on_device(idepth), pose)
+        self._last_rel = SE3.identity()
+        self._prev_rel = None
+
+    def _pose_graph_update(self, img_id: int, pose: SE3):
+        """Record a keyframe node and its odometry edge; every second node
+        (from the third on) optimize the last max_keyframes nodes on the
+        engine's device and retro-correct the engine's keyframe poses."""
+        if self._pg_nodes:
+            _, prev_pose = self._pg_nodes[-1]
+            self._pg_edges.append(
+                (len(self._pg_nodes) - 1, len(self._pg_nodes),
+                 prev_pose.inverse() @ pose))
+        self._pg_nodes.append((img_id, pose))
+        window = self.params.engine.max_keyframes
+        if len(self._pg_nodes) >= 3 and len(self._pg_nodes) % 2 == 0:
+            nodes = self._pg_nodes[-window:]
+            off = len(self._pg_nodes) - len(nodes)
+            edges = [(i - off, j - off, m) for i, j, m in self._pg_edges
+                     if i >= off and j >= off]
+            if not edges:
+                return
+            poses = SE3(torch.stack([p.q for _, p in nodes]),
+                        torch.stack([p.t for _, p in nodes]))
+            meas = SE3(torch.stack([m.q for _, _, m in edges]),
+                       torch.stack([m.t for _, _, m in edges]))
+            q, t, _ = optimize_pose_graph(
+                make_graph(poses, [(i, j) for i, j, _ in edges], meas,
+                           device=self.engine.device),
+                num_iters=5)
+            qt = torch.cat([q, t], dim=1).cpu()
+            ids = [i for i, _ in nodes]
+            self.engine.update_poseframe_poses(ids, SE3(qt[:, :4],
+                                                        qt[:, 4:]))
+            self._pg_nodes = (self._pg_nodes[:-len(nodes)]
+                              + [(nid, SE3(qt[k, :4], qt[k, 4:]))
+                                 for k, (nid, _) in enumerate(nodes)])
+
     def _process(self, frame: InputFrame):
         p = self.params
         if frame.img_id % p.input.subsample_factor:
@@ -201,7 +418,37 @@ class FlameNodelet:
             self._first_pf_id = frame.img_id
         scheduled_pf = ((frame.img_id - self._first_pf_id)
                         % max(self._pf_subsample, 1)) == 0
-        pose = SE3.from_quat_trans(frame.quat, frame.trans)
+        self._pending_cur_pyr = None
+        if self.pose_source == "tracking":
+            pose = self._estimate_pose(frame)
+            if pose is None:
+                if scheduled_pf:
+                    # The modulo slot was missed: promote the next
+                    # successful frame instead of waiting a full period.
+                    self._force_pf = True
+                # Pose unresolved: fail the frame (no engine.update, no
+                # trajectory entry); telemetry still reports the failure.
+                if self.on_stats and p.output.stats:
+                    tr = self._last_track
+                    rec = {
+                        "img_id": frame.img_id,
+                        "timestamp": frame.time,
+                        "tracking_failed": True,
+                        "track_fail_streak": self._track_fail_streak,
+                        "track_cost": (float(tr.final_cost)
+                                       if tr is not None else float("nan")),
+                        "track_n_valid": (int(tr.n_valid)
+                                          if tr is not None else 0),
+                        "track_n_inliers": (int(tr.n_inliers)
+                                            if tr is not None else 0),
+                        "queue_size": len(self.queue),
+                        "num_dropped": self.queue.num_dropped,
+                    }
+                    for cb in self.on_stats:
+                        cb(rec)
+                return
+        else:
+            pose = SE3.from_quat_trans(frame.quat, frame.trans)
         is_pf = scheduled_pf or self._force_pf
         ang_rate = self._angular_rate(frame, pose)
         self._last_pose = (frame.time, pose)
@@ -209,8 +456,11 @@ class FlameNodelet:
         t0 = time_mod.perf_counter()
         gt = (frame.depth if (self.eval_gt_depth and frame.depth is not None
                               and has_ground_truth(frame.depth)) else None)
+        # Tracking mode hands the tracker's pyramid of this frame to the
+        # engine, so the frame is uploaded and pyramided once.
         ok = self.engine.update(frame.time, frame.img_id, pose, frame.gray,
-                                is_pf, gt_depth=gt)
+                                is_pf, gt_depth=gt,
+                                img_pyr=self._pending_cur_pyr)
         if not ok:
             if is_pf:
                 # The engine failed the poseframe: promote the next
@@ -220,6 +470,22 @@ class FlameNodelet:
         if is_pf:
             self._force_pf = False
         self.trajectory.append((frame.img_id, frame.time, pose))
+        if self.pose_source == "tracking":
+            # Refresh the tracking keyframe one processed frame after the
+            # poseframe: the engine retriangulates after the poseframe, so
+            # that is the first dense map with the new detections. A state
+            # flag, so it fires under any subsample/poseframe stride.
+            if self._recovered:
+                # Recovery frame: refresh against the current map now; the
+                # post-poseframe refresh below still follows next frame.
+                self._refresh_track_ref(pose, self._pending_cur_pyr)
+                self._recovered = False
+            if self._refresh_pending and self.engine.num_poseframes > 0:
+                self._refresh_track_ref(pose, self._pending_cur_pyr)
+                self._refresh_pending = False
+            if is_pf:
+                self._refresh_pending = True
+                self._pose_graph_update(frame.img_id, pose)
         self._n_proc += 1
         self._last_success_time = time_mod.perf_counter()
 
@@ -254,6 +520,16 @@ class FlameNodelet:
                 "publish_gated": bool(gated),
                 "update_ms": st.timings("update"),
             })
+            if self.pose_source == "tracking" and self._last_track is not None:
+                tr = self._last_track
+                rec.update({
+                    "tracking_failed": False,
+                    "track_cost": float(tr.final_cost),
+                    "track_n_valid": int(tr.n_valid),
+                    "track_n_inliers": int(tr.n_inliers),
+                    "n_track_failed_frames": self.n_track_failed_frames,
+                    "n_relocalizations": self.n_relocalizations,
+                })
             if self._n_proc % p.output.load_integration_factor == 0:
                 snap = self._load.get()
                 rec.update({

@@ -1,28 +1,32 @@
 """Offline dataset frontends: TUM / EuRoC-ASL / synthetic batch runners.
 
-Counterpart of `run_offline`, `run_offline_windowed` and `main` (external
-poses) in `flame_ros_tpu/frontends/offline_runner.py` (reference
+Counterpart of `run_offline`, `run_offline_windowed`,
+`run_offline_tracking` and `main` in
+`flame_ros_tpu/frontends/offline_runner.py` (reference
 src/flame_offline_tum.cc, src/flame_offline_asl.cc): drive the engine
 frame by frame, or in poseframe-aligned windows of frames, optionally at
 a throttled rate or with ground-truth inverse depth passed in (the truth
-harness), compute GT truth stats per frame (confusion matrix +
-stats.txt, reference protocol), stream per-frame telemetry as JSONL, and
-print one summary JSON line.
+harness), or with poses estimated online by the tracking nodelet (input
+poses then only feed the ATE/RPE evaluation); compute GT truth stats per
+frame (confusion matrix + stats.txt, reference protocol), stream
+per-frame telemetry as JSONL, and print one summary JSON line. The
+stress harnesses `with_occlusion` and `with_pose_noise` wrap a frame
+stream.
 
 Usage:
   python -m flame_ros_torch.frontends.offline_runner --dataset synthetic \\
       --frames 60 --resolution vga --out /tmp/flame_out [--device cuda] \\
       [--window 6] [--save-products] [--pass-in-truth]
+  python -m flame_ros_torch.frontends.offline_runner --dataset synthetic \
+      --frames 60 --resolution vga --pose-source tracking [--occlude 24:30]
   python -m flame_ros_torch.frontends.offline_runner --dataset tum \\
       --input assoc.txt --calib calib.yaml --input-frame RDF --out out/
   python -m flame_ros_torch.frontends.offline_runner --dataset asl \\
       --pose-path mav0/state_groundtruth_estimate0 --rgb-path mav0/cam0 \\
       --world-frame RDF --out out/
 
-Not ported yet (ROADMAP.md queue 1, items 11-12): pose estimation
-(`--pose-source tracking`, `--ba-refine`), the tracking stress and noise
-harnesses (`--occlude`, `--pose-noise-*`), `--profile-stages`, and the
-synthetic stress knobs `--texture-gain` / `--exposure-amp`.
+Not ported yet: `--ba-refine` (windowed bundle adjustment, ROADMAP.md
+queue 1, item 1; refused) and `--profile-stages` (item 2).
 """
 from __future__ import annotations
 
@@ -40,8 +44,10 @@ import torch
 
 from flame_ros_torch.config import FlameParams
 from flame_ros_torch.eval.metrics import (StatsFileWriter, TruthStats,
-                                          depth_metrics, has_ground_truth)
-from flame_ros_torch.geometry.se3 import SE3
+                                          ate_rmse, depth_metrics,
+                                          has_ground_truth, rpe)
+from flame_ros_torch.frontends.nodelet import FlameNodelet
+from flame_ros_torch.geometry.se3 import SE3, random_se3
 from flame_ros_torch.models.engine import Flame
 from flame_ros_torch.utils.device import resolve_device
 from flame_ros_torch.utils.load_tracker import LoadTracker
@@ -60,6 +66,23 @@ class RunResult:
     final_abs_rel: float = float("nan")
     final_delta1: float = float("nan")
     stats_path: Optional[str] = None
+    # Tracking mode (no GT poses in): ate_rmse is Horn/SE3-aligned (scale
+    # errors count — the bootstrap depth anchors the scale); sim3 removes
+    # scale (drift); raw is origin-aligned (both start at identity).
+    ate_rmse: float = float("nan")
+    ate_rmse_sim3: float = float("nan")
+    ate_rmse_raw: float = float("nan")
+    gt_path_length: float = float("nan")
+    # Relative pose error (TUM evaluate_rpe): per frame pair (delta 1)
+    # and over 30 frames (~1 s at 30 fps).
+    rpe_trans_rmse: float = float("nan")      # m, delta = 1 frame
+    rpe_rot_rmse_deg: float = float("nan")    # deg, delta = 1 frame
+    rpe30_trans_rmse: float = float("nan")    # m, delta = 30 frames
+    rpe30_rot_rmse_deg: float = float("nan")  # deg, delta = 30 frames
+    # Frames the tracking gate rejected (dropped) and recoveries through
+    # the keyframe-ring re-search.
+    track_failed_frames: int = 0
+    relocalizations: int = 0
 
 
 @dataclass
@@ -68,8 +91,8 @@ class Frame:
     time: float
     gray: object        # [H, W] numpy array or tensor
     depth: object       # [H, W] meters, 0 where invalid
-    quat: np.ndarray    # (w, x, y, z)
-    trans: np.ndarray
+    quat: Optional[np.ndarray]    # (w, x, y, z)
+    trans: Optional[np.ndarray]
 
 
 def _truth_idepth(depth):
@@ -295,6 +318,144 @@ def run_offline(frames: Iterable, cam, params: FlameParams,
                    out_dir, save_products, cam)
 
 
+def run_offline_tracking(frames: Iterable, cam, params: FlameParams,
+                         out_dir: Optional[str] = None,
+                         ba_refine: bool = False,
+                         max_frames: Optional[int] = None,
+                         quiet: bool = True, device=None,
+                         node: Optional[FlameNodelet] = None) -> RunResult:
+    """Online streaming with no GT poses: poses are estimated by the
+    nodelet's direct tracker and windowed pose graph. Input poses, where
+    the stream has them, are used only as the GT trajectory for ATE/RPE;
+    the first frame's depth fixes the monocular scale (RGB-D-style
+    bootstrap); depth on later frames feeds only the GT confusion matrix.
+    Runs on the card unless `device` says otherwise; `node` lets a caller
+    pass (and afterwards inspect) its own tracking nodelet.
+
+    Reports the same stats.txt/JSONL products as `run_offline` plus the
+    ATE and RPE block (eval/metrics.py states the protocols)."""
+    if node is None:
+        # trajectory_cap=0: unbounded, so the ATE window covers the run.
+        node = FlameNodelet(cam, params, pose_source="tracking",
+                            ba_refine=ba_refine, eval_gt_depth=True,
+                            trajectory_cap=0, device=device)
+    writer = StatsFileWriter(out_dir) if out_dir else None
+    jsonl = open(os.path.join(out_dir, "telemetry.jsonl"), "w") \
+        if out_dir else None
+
+    res = RunResult()
+    rmses, precs, recs = [], [], []
+    last_gt = None
+    gt_poses: dict[int, tuple] = {}   # img_id -> GT (q, t)
+    n_seen = 0
+
+    def on_stats(rec):
+        nonlocal n_seen
+        if rec.get("true_pos", -1) >= 0:
+            ts = TruthStats.from_record(rec)
+            rmses.append(ts.rmse)
+            if np.isfinite(ts.precision):
+                precs.append(ts.precision)
+            if np.isfinite(ts.recall):
+                recs.append(ts.recall)
+            if writer:
+                writer.append(n_seen, rec["timestamp"],
+                              rec.get("update_ms", 0.0),
+                              int(rec["num_vtx"]), int(rec["num_tris"]),
+                              ts, rec["total_photo_error"],
+                              rec["avg_photo_error"])
+        if jsonl:
+            jsonl.write(json.dumps(rec) + "\n")
+        n_seen += 1
+
+    node.on_stats.append(on_stats)
+    t_start = time_mod.perf_counter()
+    try:
+        for frame in frames:
+            if max_frames is not None and frame.img_id >= max_frames:
+                break
+            if frame.quat is not None:
+                gt_poses[frame.img_id] = (
+                    np.asarray(frame.quat, np.float64),
+                    np.asarray(frame.trans, np.float64))
+            if has_ground_truth(frame.depth):
+                last_gt = frame.depth
+            node.push_frame(frame.img_id, frame.time, gray=frame.gray,
+                            depth=frame.depth)
+            node.run_until_idle(idle_timeout=0.01)
+            if not quiet and node.trajectory:
+                fid, _, pose = node.trajectory[-1]
+                print(f"frame {fid}: est_t={np.round(pose.t.numpy(), 3)}")
+    finally:
+        node.on_stats.remove(on_stats)
+        node.engine.shutdown()
+        if jsonl:
+            jsonl.close()
+
+    res.frames_processed = len(node.trajectory)
+    res.frames_failed = node.engine.num_failed_frames
+    res.track_failed_frames = node.n_track_failed_frames
+    res.relocalizations = node.n_relocalizations
+    res.fps = res.frames_processed / max(
+        time_mod.perf_counter() - t_start, 1e-6)
+    _finish(res, node.engine, last_gt, rmses, precs, recs, writer, out_dir,
+            False, cam)
+
+    pairs = [(p.q.numpy().astype(np.float64), p.t.numpy().astype(np.float64),
+              gt_poses[fid])
+             for fid, _, p in node.trajectory if fid in gt_poses]
+    if len(pairs) >= 3:
+        est_q = np.stack([q for q, _, _ in pairs])
+        est_t = np.stack([t for _, t, _ in pairs])
+        gt_q = np.stack([g[0] for _, _, g in pairs])
+        gt_t = np.stack([g[1] for _, _, g in pairs])
+        res.ate_rmse = ate_rmse(est_t, gt_t, align="se3")
+        res.ate_rmse_sim3 = ate_rmse(est_t, gt_t, align="sim3")
+        res.ate_rmse_raw = ate_rmse(est_t, gt_t, align="none")
+        res.gt_path_length = float(
+            np.sum(np.linalg.norm(np.diff(gt_t, axis=0), axis=1)))
+        r1 = rpe(est_q, est_t, gt_q, gt_t, delta=1)
+        res.rpe_trans_rmse = r1["trans_rmse"]
+        res.rpe_rot_rmse_deg = r1["rot_rmse_deg"]
+        if len(pairs) > 30:
+            r30 = rpe(est_q, est_t, gt_q, gt_t, delta=30)
+            res.rpe30_trans_rmse = r30["trans_rmse"]
+            res.rpe30_rot_rmse_deg = r30["rot_rmse_deg"]
+    return res
+
+
+def with_occlusion(frames: Iterable, start: int, end: int,
+                   value: float = 250.0):
+    """Tracking-killer injection: replace the gray content of frames
+    [start, end] (inclusive) with a uniform flash (a full-frame occlusion
+    or white-out no photometric tracker can align), leaving poses and
+    depths untouched so the ATE ground truth stays valid. Drives the
+    tracking failure gate and the keyframe-ring relocalization."""
+    for frame in frames:
+        if start <= frame.img_id <= end:
+            frame.gray = (torch.full_like(frame.gray, value)
+                          if isinstance(frame.gray, torch.Tensor)
+                          else np.full_like(np.asarray(frame.gray), value))
+        yield frame
+
+
+def with_pose_noise(frames: Iterable, sigma_trans: float,
+                    sigma_rot_deg: float, seed: int = 0):
+    """Pose-noise ablation (reference: the Gaussian SE3 noise block in
+    src/flame_offline_tum.cc:438-489): right-perturb every input pose by
+    a random SE3 tangent draw, leaving images and depths clean, so a run
+    measures the depth estimate's robustness to odometry error. The draws
+    are the JAX package's for the same seed."""
+    rng = np.random.default_rng(seed)
+    sr = np.radians(sigma_rot_deg)
+    for frame in frames:
+        noise = random_se3(rng, sigma_rot=sr, sigma_trans=sigma_trans)
+        noisy = SE3.from_quat_trans(frame.quat, frame.trans) @ noise
+        frame.quat = noisy.q.numpy()
+        frame.trans = noisy.t.numpy()
+        yield frame
+
+
 def synthetic_frames(seq):
     """Frames of a SyntheticSequence (images stay on its device)."""
     q = seq.poses.q.detach().cpu().numpy()
@@ -315,8 +476,10 @@ def _build_frames(args, device):
                                                         make_sequence)
         cam = VGA if args.resolution == "vga" else QVGA
         seq = make_sequence(n_frames=args.frames or 60, cam=cam,
-                            motion=args.motion, scene=args.scene,
-                            device=device)
+                            motion=args.motion,
+                            texture_gain=args.texture_gain,
+                            exposure_amp=args.exposure_amp,
+                            scene=args.scene, device=device)
         return synthetic_frames(seq), cam
     if args.dataset == "tum":
         from flame_ros_torch.datasets.tum import (TUMRGBDStream,
@@ -362,6 +525,12 @@ def main(argv=None):
                    help="synthetic trajectory: strafe/forward/rotation/"
                         "mav/static")
     p.add_argument("--scene", default="room", choices=["room", "primitives"])
+    p.add_argument("--texture-gain", type=float, default=1.0,
+                   help="synthetic: contrast scale about mid-gray "
+                        "(0.15 = low-texture stress regime)")
+    p.add_argument("--exposure-amp", type=float, default=0.0,
+                   help="synthetic: auto-exposure oscillation amplitude "
+                        "(0.5 = exposure stress regime)")
     p.add_argument("--zero-mean-ssd", action="store_true",
                    help="brightness-offset-invariant epipolar matching "
                         "(engine.zero_mean_ssd; for auto-exposure input)")
@@ -375,6 +544,25 @@ def main(argv=None):
                    help="write final_mesh.npz and final_idepth.npy to "
                         "--out")
     p.add_argument("--verbose", action="store_true")
+    p.add_argument("--pose-source", default="external",
+                   choices=["external", "tracking"],
+                   help="tracking: estimate poses online (direct tracker "
+                        "+ pose graph); input poses are used only for "
+                        "ATE/RPE")
+    p.add_argument("--ba-refine", action="store_true",
+                   help="tracking mode: windowed photometric BA (not "
+                        "ported yet; refused)")
+    p.add_argument("--pose-noise-sigma", type=float, default=0.0,
+                   help="pose-noise ablation: translation sigma in "
+                        "meters applied to every input pose")
+    p.add_argument("--pose-noise-rot-sigma", type=float, default=0.0,
+                   help="pose-noise ablation: rotation sigma in degrees")
+    p.add_argument("--pose-noise-seed", type=int, default=0)
+    p.add_argument("--occlude", default="",
+                   help="tracking-killer stress injection: START:END "
+                        "(inclusive frame ids) replaced by a uniform "
+                        "white flash; images only, poses and depths stay "
+                        "valid for evaluation")
     args = p.parse_args(argv)
     if args.dataset == "tum" and not args.input:
         p.error("--dataset tum requires --input <association file>")
@@ -386,6 +574,19 @@ def main(argv=None):
         p.error("--window is incompatible with --pass-in-truth/--rate")
     if args.save_products and not args.out:
         p.error("--save-products needs --out")
+    noisy = args.pose_noise_sigma > 0 or args.pose_noise_rot_sigma > 0
+    if args.ba_refine:
+        p.error("--ba-refine (windowed bundle adjustment) is not ported "
+                "yet: ROADMAP.md queue 1, item 1")
+    if args.pose_source == "tracking":
+        if args.window > 0 or args.pass_in_truth or args.rate > 0:
+            p.error("--pose-source tracking is incompatible with "
+                    "--window/--pass-in-truth/--rate")
+        if noisy:
+            # The input poses are the ATE ground truth in tracking mode.
+            p.error("--pose-source tracking is incompatible with "
+                    "--pose-noise-* (the input poses are the ATE ground "
+                    "truth)")
 
     device = resolve_device(args.device)
     params = (FlameParams.from_yaml(args.config) if args.config
@@ -394,9 +595,20 @@ def main(argv=None):
         params = dataclasses.replace(params, engine=dataclasses.replace(
             params.engine, zero_mean_ssd=True))
     frames, cam = _build_frames(args, device)
+    if args.occlude:
+        occ_start, occ_end = (int(x) for x in args.occlude.split(":"))
+        frames = with_occlusion(frames, occ_start, occ_end)
+    if noisy:
+        frames = with_pose_noise(frames, args.pose_noise_sigma,
+                                 args.pose_noise_rot_sigma,
+                                 seed=args.pose_noise_seed)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    if args.window > 0:
+    if args.pose_source == "tracking":
+        res = run_offline_tracking(frames, cam, params, out_dir=args.out,
+                                   max_frames=args.frames,
+                                   quiet=not args.verbose, device=device)
+    elif args.window > 0:
         res = run_offline_windowed(
             frames, cam, params, out_dir=args.out, window=args.window,
             max_frames=args.frames, save_products=args.save_products,
@@ -418,6 +630,19 @@ def main(argv=None):
         "abs_rel": _round(res.final_abs_rel, 4),
         "delta1": _round(res.final_delta1, 4),
     }
+    if args.pose_source == "tracking":
+        summary.update({
+            "ate_rmse": _round(res.ate_rmse, 5),
+            "ate_rmse_sim3": _round(res.ate_rmse_sim3, 5),
+            "ate_rmse_raw": _round(res.ate_rmse_raw, 5),
+            "gt_path_length": _round(res.gt_path_length, 4),
+            "track_failed_frames": res.track_failed_frames,
+            "relocalizations": res.relocalizations,
+            "rpe_trans_rmse": _round(res.rpe_trans_rmse, 5),
+            "rpe_rot_rmse_deg": _round(res.rpe_rot_rmse_deg, 4),
+            "rpe30_trans_rmse": _round(res.rpe30_trans_rmse, 5),
+            "rpe30_rot_rmse_deg": _round(res.rpe30_rot_rmse_deg, 4),
+        })
     print(json.dumps(summary))
     return res
 

@@ -12,10 +12,11 @@ format, so a client of one talks to the other:
               for get_mesh: header + NPZ payload (with K)
               for get_idepth: header + float32 payload
 
-The server wraps one FlameNodelet (external poses; the JAX server's
-`pose_source="tracking"` waits with the tracker) whose engine runs on
-`device`. Beside the JAX package's server: an error of any kind ends only
-the connection it came from (and is logged); `stop()` closes the live
+The server wraps one FlameNodelet whose engine runs on `device`. With
+`pose_source="tracking"` (`--pose-source tracking`) the nodelet estimates
+the poses and a client sends frames without "quat"/"trans". Beside the
+JAX package's server: an error of any kind ends only the connection it
+came from (and is logged); `stop()` closes the live
 connections; the warmup builds the raster kernel library, the native
 Delaunay library and the CUDA context and makes no second engine.
 """
@@ -76,9 +77,10 @@ def _recv_exact(sock, n):
 class FlameServer:
     def __init__(self, cam: Pinhole, params: Optional[FlameParams] = None,
                  host: str = "127.0.0.1", port: int = 0,
-                 queue_size: int = 8, device=None):
+                 queue_size: int = 8, device=None,
+                 pose_source: str = "external"):
         self.node = FlameNodelet(cam, params, queue_size=queue_size,
-                                 device=device)
+                                 pose_source=pose_source, device=device)
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._srv.bind((host, port))
@@ -249,6 +251,10 @@ def main(argv=None):
                         "(drop-newest)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
+    p.add_argument("--pose-source", default="external",
+                   choices=["external", "tracking"],
+                   help="tracking: estimate poses online (direct tracker "
+                        "+ pose graph); clients send frames without poses")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip building the kernel libraries before "
                         "serving (frames arriving during the build may "
@@ -259,7 +265,8 @@ def main(argv=None):
     params = (FlameParams.from_yaml(args.config) if args.config
               else FlameParams())
     srv = FlameServer(cam, params, host=args.host, port=args.port,
-                      queue_size=args.queue_size, device=args.device)
+                      queue_size=args.queue_size, device=args.device,
+                      pose_source=args.pose_source)
     srv.start(warmup=not args.no_warmup)
     print(f"flame-serve listening on {args.host}:{srv.port}", flush=True)
     try:

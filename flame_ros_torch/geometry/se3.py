@@ -248,3 +248,14 @@ def _so3_left_jacobian_inv_apply(omega, theta, t):
     Wt = _matvec(W, t)
     WWt = _matvec(W, Wt)
     return t - 0.5 * Wt + C * WWt
+
+
+def random_se3(rng: np.random.Generator, sigma_rot: float = 1.0,
+               sigma_trans: float = 1.0, device=None) -> SE3:
+    """Random pose for tests and the pose-noise ablation harness
+    (reference: the disabled Gaussian SE3 noise block,
+    src/flame_offline_tum.cc:438-489): the same numpy draws as the JAX
+    package's, rotation first, then `SE3.exp`."""
+    omega = rng.normal(0, sigma_rot, 3).astype(np.float32)
+    v = rng.normal(0, sigma_trans, 3).astype(np.float32)
+    return SE3.exp(np.concatenate([v, omega]), device=device)

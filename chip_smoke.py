@@ -30,7 +30,9 @@ Phases, each printed as one line:
    hold there,
    ms/frame and accuracy; then the v4 and v2 kernels timed on those six
    frames' inputs (kernel only and wrapper, CUDA-event medians), each
-   equal to its plain version there;
+   equal to its plain version there; then, after the timed frames, one
+   more frame through the same engine with `debug.profile_stages` on,
+   whose hook re-times every stage (the 13 stage timings printed);
 5. the windowed streaming path at VGA, room/strafe: (a)
    `run_offline_windowed` with windows of 6 and synchronous
    triangulation over the same 60 frames, held against the JAX package's
@@ -70,7 +72,15 @@ Phases, each printed as one line:
    JAX run's and within the JAX test's bounds, the engine healthy. Each
    run prints tracking ms/frame p50/p95 beside phase 4's, and
    `track_frame` / `ring_relocalize` ms per call (CUDA events) and device
-   launches per call (profiler), each checked to make no host sync.
+   launches per call (profiler), each checked to make no host sync;
+9. tracking mode with windowed bundle adjustment (`ba_refine=True`) on
+   phase 8 (a)'s frames: every frame tracked, accuracy in phase 8's bands
+   of the JAX package's CPU run of the sequence with `--ba-refine`, as
+   many BA solves as that run, v4 doing the raster work on every frame;
+   `hybrid_bundle_adjust` ms per call (p50, max), its device launches and
+   card-busy ms per call, `bundle_adjust_window`'s alone and checked to
+   make no host sync, `ba_refine`'s share of its poseframe's ms, and
+   tracking+BA ms/frame p50/p95 beside phase 8's and phase 4's.
 
 Any failure exits non-zero. The line before the last is the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`; before
@@ -79,6 +89,7 @@ line {"ok": true, "device": {...}}. Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero and
 prints no result.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -135,6 +146,18 @@ JAX_OCCLUDE_VGA = {"frames": 53, "idepth_rmse": 0.05073, "recall": 0.7564,
                    "ate_rmse_sim3": 0.00153, "rpe_trans_rmse": 0.00128,
                    "rpe_rot_rmse_deg": 0.0261, "track_failed_frames": 7,
                    "relocalizations": 0}
+# The same with windowed bundle adjustment on every poseframe, on the
+# port's rendered frames:
+#   JAX_PLATFORMS=cpu python scripts/jax_tracking_reference.py --ba-refine
+# (97 s on the CPU). The JAX CLI (--ba-refine) renders its own frames, at
+# most 0.022 gray levels away from the port's, and does 8 solves there
+# instead of 7 (rmse 0.05546, ATE 0.030). Phase 9 holds the port to this
+# run with phase 8's bands and its number of BA solves.
+JAX_TRACK_BA_VGA = {"frames": 60, "idepth_rmse": 0.05408, "recall": 0.7722,
+                    "coverage": 0.8672, "ate_rmse": 0.02991,
+                    "ate_rmse_sim3": 0.02649, "rpe_trans_rmse": 0.00788,
+                    "rpe_rot_rmse_deg": 0.1603, "track_failed_frames": 0,
+                    "relocalizations": 0, "ba_solves": 7}
 OCCLUDED = (24, 30)
 # tests/test_tracking_recovery.py:141-142: a 7-frame occlusion fails at
 # least its 7 frames and recovers within 8 more.
@@ -975,14 +998,14 @@ def no_sync(fn):
 
 
 class CallTimer:
-    """Wraps a function of the nodelet module: each call between two CUDA
-    events and on the host clock (the time to launch it), its arguments
-    kept."""
+    """Wraps a function of a module: each call between two CUDA events and
+    on the host clock (the time to launch it), the last call's arguments
+    and every call's result kept."""
 
     def __init__(self, mod, name):
         self.mod, self.name = mod, name
         self.fn = getattr(mod, name)
-        self.events, self.host_s, self.last = [], [], None
+        self.events, self.host_s, self.outs, self.last = [], [], [], None
 
     def __call__(self, *args, **kw):
         import torch
@@ -994,6 +1017,7 @@ class CallTimer:
         b.record()
         self.host_s.append(time.perf_counter() - t0)
         self.events.append((a, b))
+        self.outs.append(out)
         self.last = (args, kw)
         return out
 
@@ -1022,7 +1046,8 @@ def track_bands(res, ref, keys):
 
 def tracking_path(seq, ms4, params, cam, dev, out):
     """Phase 8 over phase 4's sequence `seq`, whose per-frame host ms
-    (steady frames) are ms4."""
+    (steady frames) are ms4. Returns the summaries and each run's
+    per-frame host ms (steady, tracked frames)."""
     import numpy as np
     import torch
     from flame_ros_torch.frontends import nodelet as nodelet_mod
@@ -1030,7 +1055,7 @@ def tracking_path(seq, ms4, params, cam, dev, out):
     from flame_ros_torch.frontends.nodelet import FlameNodelet
     from flame_ros_torch.ops import raster_cuda as rc
     n = len(seq)
-    summaries = {}
+    summaries, frame_lists = {}, {}
     for name, occlude, ref in (("clean", None, JAX_TRACK_VGA),
                                ("occluded", OCCLUDED, JAX_OCCLUDE_VGA)):
         node = FlameNodelet(cam, params, pose_source="tracking",
@@ -1137,7 +1162,140 @@ def tracking_path(seq, ms4, params, cam, dev, out):
                 pctl(np, tms, 50) / pctl(np, ok_ms, 50)),
             no_host_sync=True, launches=launches, work=work, **reloc)
         phase(f"tracking_path_{name}", **summaries[name])
-    return summaries
+        frame_lists[name] = ok_ms
+    return summaries, frame_lists
+
+
+def tracking_ba_path(seq, ms4, ms8, params, cam, dev, out):
+    """Phase 9: phase 8 (a) with windowed bundle adjustment on every
+    poseframe (`ba_refine=True`). ms4 and ms8 are phase 4's and phase 8
+    (a)'s per-frame host ms."""
+    import numpy as np
+    from flame_ros_torch.frontends import nodelet as nodelet_mod
+    from flame_ros_torch.frontends import offline_runner
+    from flame_ros_torch.frontends.nodelet import FlameNodelet
+    from flame_ros_torch.models import ba as ba_mod
+    from flame_ros_torch.ops import raster_cuda as rc
+    n = len(seq)
+    ref = JAX_TRACK_BA_VGA
+    node = FlameNodelet(cam, params, pose_source="tracking", ba_refine=True,
+                        eval_gt_depth=True, trajectory_cap=0, device=dev)
+    frame_ms, refine_ms = {}, {}
+    process, refine = node._process, node._ba_refine
+
+    def timed(frame):
+        t0 = time.perf_counter()
+        process(frame)
+        frame_ms[frame.img_id] = (time.perf_counter() - t0) * 1e3
+
+    def timed_refine():
+        # Ends in the host read of the solve's poses (a sync).
+        t0 = time.perf_counter()
+        n_before = len(node.ba_costs)
+        refine()
+        if len(node.ba_costs) > n_before:
+            refine_ms[node.trajectory[-1][0]] = \
+                (time.perf_counter() - t0) * 1e3
+
+    node._process, node._ba_refine = timed, timed_refine
+    stats = []
+    node.on_stats.append(stats.append)
+    rc.reset_counters()
+    with CallTimer(nodelet_mod, "hybrid_bundle_adjust") as hb, \
+            CallTimer(ba_mod, "bundle_adjust_window") as bw, \
+            CallTimer(nodelet_mod, "gather_ba_inputs") as gb:
+        res = offline_runner.run_offline_tracking(
+            offline_runner.synthetic_frames(seq), cam, params,
+            out_dir=os.path.join(out, "tracking_ba"), device=dev, node=node)
+    launches, work = launch_counts(rc, dev)
+    # Per poseframe: valid keyframes, the gauge slot and the points it
+    # owns (a solve needs >= 3 keyframes and >= 24 points).
+    K = params.engine.max_keyframes
+    gathers = [[int((p[:K] > 0.5).sum()), int(p[2 * K]), int(p[2 * K + 1])]
+               for p in (g.cpu() for g in gb.outs)]
+    # The card's BA against its plain CPU path on the last solve's inputs.
+    hargs, hkw = hb.last
+    on_card = nodelet_mod.hybrid_bundle_adjust(*hargs, **hkw)
+    on_cpu = nodelet_mod.hybrid_bundle_adjust(
+        *(a.cpu() for a in hargs), **hkw)
+    card_cpu = {k: float((getattr(on_card, k).cpu()
+                          - getattr(on_cpu, k)).abs().max())
+                for k in ("q", "t", "idepths", "gains", "offsets")}
+    card_cpu["final_cost_rel"] = abs(
+        float(on_card.final_cost) / float(on_cpu.final_cost) - 1.0)
+    card_cpu["n_valid_equal"] = int(on_card.n_valid) == int(on_cpu.n_valid)
+    ids = [i for i, _, _ in node.trajectory]
+    health = [r["health"] for r in stats if "health" in r]
+    assert res.frames_failed == 0 and node.engine.num_failed_frames == 0
+    assert res.frames_processed == n and ids == list(range(n)), res
+    assert res.track_failed_frames == 0, res
+    assert len(health) == n and all(h == 1.0 for h in health)
+    assert launches["v4"] >= n, launches
+    assert launches["v2"] == 0 and launches["v3"] == 0, launches
+    assert work == {"v4": launches["v4"], "v2": 0, "v3": 0}, work
+    # Every solve went through the hybrid solver.
+    assert len(hb.events) == len(bw.events) == len(node.ba_costs)
+    diff, bands_ok = track_bands(res, ref, ("ate_rmse", "idepth_rmse",
+                                            "recall", "coverage"))
+    # The last solve again, standalone: no host sync inside
+    # bundle_adjust_window; launches and card-busy ms of a whole
+    # hybrid_bundle_adjust call and of its window solve.
+    bargs, bkw = bw.last
+    no_sync(lambda: ba_mod.bundle_adjust_window(*bargs, **bkw))
+    hb_events, hb_busy = device_events(
+        lambda: nodelet_mod.hybrid_bundle_adjust(*hargs, **hkw))
+    bw_events, bw_busy = device_events(
+        lambda: ba_mod.bundle_adjust_window(*bargs, **bkw))
+    hms = hb.ms()
+    pf_ms = [frame_ms[i] for i in refine_ms]
+    share = [refine_ms[i] / frame_ms[i] for i in refine_ms]
+    steady = [frame_ms[i] for i in ids[5:]]
+    summary = dict(
+        frames=res.frames_processed, failed=res.frames_failed,
+        track_failed_frames=res.track_failed_frames,
+        relocalizations=res.relocalizations, ba_solves=len(node.ba_costs),
+        ba_costs=node.ba_costs, ba_poseframes=sorted(refine_ms),
+        ba_gathers=gathers, card_vs_cpu_last_solve=card_cpu,
+        ate_rmse=res.ate_rmse, ate_rmse_sim3=res.ate_rmse_sim3,
+        ate_rmse_raw=res.ate_rmse_raw, gt_path_length=res.gt_path_length,
+        rpe_trans_rmse=res.rpe_trans_rmse,
+        rpe_rot_rmse_deg=res.rpe_rot_rmse_deg,
+        rpe30_trans_rmse=res.rpe30_trans_rmse,
+        rpe30_rot_rmse_deg=res.rpe30_rot_rmse_deg,
+        mean_rmse=res.mean_rmse, mean_precision=res.mean_precision,
+        mean_recall=res.mean_recall, final_coverage=res.final_coverage,
+        final_abs_rel=res.final_abs_rel, final_delta1=res.final_delta1,
+        jax_cpu=ref, diff=diff,
+        hybrid_ba_ms_p50=pctl(np, hms, 50), hybrid_ba_ms_max=max(hms),
+        hybrid_ba_host_ms_p50=pctl(np, [x * 1e3 for x in hb.host_s], 50),
+        hybrid_ba_launches_per_call=hb_events,
+        hybrid_ba_device_busy_ms=hb_busy,
+        ba_window_ms_p50=pctl(np, bw.ms(), 50),
+        ba_window_launches_per_call=bw_events,
+        ba_window_device_busy_ms=bw_busy,
+        ba_refine_ms_p50=pctl(np, list(refine_ms.values()), 50),
+        ba_refine_ms_max=max(refine_ms.values()),
+        ba_poseframe_ms_p50=pctl(np, pf_ms, 50),
+        ba_refine_share_of_poseframe_p50=pctl(np, share, 50),
+        ba_refine_share_of_poseframe_min=min(share),
+        ba_window_no_host_sync=True,
+        tracking_ba_ms_per_frame_p50=pctl(np, steady, 50),
+        tracking_ba_ms_per_frame_p95=pctl(np, steady, 95),
+        tracking_ms_per_frame_p50=pctl(np, ms8, 50),
+        tracking_ms_per_frame_p95=pctl(np, ms8, 95),
+        main_path_ms_per_frame_p50=pctl(np, ms4, 50),
+        main_path_ms_per_frame_p95=pctl(np, ms4, 95),
+        launches=launches, work=work)
+    checks = {
+        "solves_equal_jax": len(node.ba_costs) == ref["ba_solves"],
+        "bands": bands_ok,
+        "card_equals_cpu_path": (card_cpu["n_valid_equal"]
+                                 and max(card_cpu["q"], card_cpu["t"]) <= 1e-4
+                                 and card_cpu["final_cost_rel"] <= 1e-3)}
+    phase("tracking_ba_path", checks=checks, **summary)
+    failed = [k for k, v in checks.items() if not v]
+    assert not failed, failed
+    return summary
 
 
 def main():
@@ -1167,6 +1325,7 @@ def main():
     from flame_ros_torch.graph.delaunay import native_available, triangulate
     from flame_ros_torch.models.engine import Flame, state_to_numpy
     from flame_ros_torch.ops import raster_cuda as rc
+    from flame_ros_torch.utils.stage_profiler import STAGES
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda")
 
@@ -1327,6 +1486,28 @@ def main():
           checked_frame_times=frame_ms,
           num_tris_last=recs[-1]["num_tris"])
 
+    # The stage profiler on phase 4's engine, after its timed frames:
+    # debug.profile_stages on, one more frame (the last one again, as
+    # frame 60) through Flame.update, whose hook re-times every stage.
+    engine.params = dataclasses.replace(
+        engine.params, debug=dataclasses.replace(
+            engine.params.debug, profile_stages=True,
+            profile_stages_every=1))
+    last = n_frames - 1
+    assert engine.update(float(seq.timestamps[last]) + 1.0 / 30, n_frames,
+                         SE3(seq.poses.q[last].cpu(), seq.poses.t[last].cpu()),
+                         seq.images[last], False)
+    timings = engine.stats_.timings()
+    stage_keys = (*STAGES, "update")
+    missing = [k for k in stage_keys if k not in timings]
+    assert len(stage_keys) == 13 and not missing, missing
+    assert all(timings[k] > 0.0 for k in ("update_idepths", "sync_graph",
+                                          "triangulate")), timings
+    phase("profile_stages", stage_ms={k: timings[k] for k in stage_keys},
+          timed_by="CUDA events around each stage's standalone call "
+                   "(triangulate: host clock); update includes the "
+                   "profiling pass")
+
     # 5. the windowed streaming path -----------------------------------
     # (a) windows of 6, synchronous triangulation, the phase-4 sequence,
     # against the JAX package's CPU run of it.
@@ -1456,7 +1637,10 @@ def main():
     live_frontend(seq, recs, res, params, VGA, dev, OUT)
 
     # 8. tracking mode -------------------------------------------------
-    tracking_path(seq, steady, params, VGA, dev, OUT)
+    _, ms8 = tracking_path(seq, steady, params, VGA, dev, OUT)
+
+    # 9. tracking mode with windowed bundle adjustment ------------------
+    tracking_ba_path(seq, steady, ms8["clean"], params, VGA, dev, OUT)
 
     # Result lines -----------------------------------------------------
     replaces = {"v4": "flame_ros_tpu/ops/raster_pallas.py:458",

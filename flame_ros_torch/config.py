@@ -380,19 +380,12 @@ class FlameParams:
         the plain raster runs. The NLTGV2 adjoint is
         the exact f32 incidence gather on both. The JAX package's
         "matmul" adjoint (bf16 incidence matmul for the TPU's matrix
-        unit) is not part of this package and is rejected, and so is
-        debug.profile_stages until the stage profiler is ported (ROADMAP.md
-        queue 1, item 2): a run that asks for stage timings must not get
-        none without an error."""
+        unit) is not part of this package and is rejected."""
         kind = device.type if hasattr(device, "type") else \
             str(device).split(":")[0]
         if kind not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device!r}")
         eng = self.engine
-        if self.debug.profile_stages:
-            raise ValueError(
-                "debug.profile_stages is not ported yet (the stage "
-                "profiler, ROADMAP.md queue 1, item 2)")
         if eng.nltgv2_adjoint == "matmul":
             raise ValueError(
                 "nltgv2_adjoint='matmul' is a TPU-only formulation; "

@@ -226,6 +226,125 @@ class SyntheticSequence:
         return self.images.shape[0]
 
 
+def _host_arrays(seq: "SyntheticSequence"):
+    """(images, depths, q, t) of a sequence as host numpy arrays."""
+    return tuple(x.detach().cpu().numpy() for x in
+                 (seq.images, seq.depths, seq.poses.q, seq.poses.t))
+
+
+def export_asl(seq: "SyntheticSequence", root: str,
+               depth_scale: float = 5000.0) -> None:
+    """Write a sequence as a EuRoC/ASL folder tree (mav0-style: cam0 +
+    depth0 + state_groundtruth_estimate0, sensor.yaml + data.csv + PNG
+    data folders), so that the whole ASL route (folder reader, timestamp
+    association, T_BS chain, world-frame conversion, rectification) runs
+    end to end on exact-GT data. The files equal the JAX package's
+    `export_asl` for the same frames. Poses are camera-to-world RDF with
+    identity T_BS (load with world_frame="RDF"); depth is uint16 at
+    1/depth_scale m (truncated), poses printed to 9 decimals."""
+    import os
+
+    import cv2
+    import yaml
+
+    cam = seq.cam
+    cam0 = os.path.join(root, "cam0")
+    depth0 = os.path.join(root, "depth0")
+    pose0 = os.path.join(root, "state_groundtruth_estimate0")
+    for d in (cam0, depth0):
+        os.makedirs(os.path.join(d, "data"), exist_ok=True)
+    os.makedirs(pose0, exist_ok=True)
+    yaml_T = {"rows": 4, "cols": 4, "data": np.eye(4).ravel().tolist()}
+    with open(os.path.join(cam0, "sensor.yaml"), "w") as f:
+        yaml.dump({"sensor_type": "camera", "T_BS": yaml_T,
+                   "intrinsics": [cam.fx, cam.fy, cam.cx, cam.cy],
+                   "resolution": [cam.width, cam.height],
+                   "distortion_coefficients": [0.0, 0.0, 0.0, 0.0]}, f)
+    with open(os.path.join(depth0, "sensor.yaml"), "w") as f:
+        yaml.dump({"sensor_type": "depth", "T_BS": yaml_T,
+                   "depth_scale_factor": float(depth_scale)}, f)
+    with open(os.path.join(pose0, "sensor.yaml"), "w") as f:
+        yaml.dump({"sensor_type": "visual-inertial", "T_BS": yaml_T}, f)
+    images, depths, q, t = _host_arrays(seq)
+    cam_rows, depth_rows, pose_rows = [], [], []
+    for i in range(len(seq)):
+        ts = int(round(float(seq.timestamps[i]) * 1e9))
+        cv2.imwrite(os.path.join(cam0, "data", f"{ts}.png"),
+                    np.clip(images[i], 0, 255).astype(np.uint8))
+        d16 = np.clip(depths[i] * depth_scale, 0, 65535)
+        cv2.imwrite(os.path.join(depth0, "data", f"{ts}.png"),
+                    d16.astype(np.uint16))
+        cam_rows.append(f"{ts},{ts}.png")
+        depth_rows.append(f"{ts},{ts}.png")
+        pose_rows.append(
+            f"{ts},{float(t[i, 0]):.9f},{float(t[i, 1]):.9f},"
+            f"{float(t[i, 2]):.9f},{float(q[i, 0]):.9f},"
+            f"{float(q[i, 1]):.9f},{float(q[i, 2]):.9f},"
+            f"{float(q[i, 3]):.9f}")
+    hdr = "#timestamp [ns],filename\n"
+    with open(os.path.join(cam0, "data.csv"), "w") as f:
+        f.write(hdr + "\n".join(cam_rows) + "\n")
+    with open(os.path.join(depth0, "data.csv"), "w") as f:
+        f.write(hdr + "\n".join(depth_rows) + "\n")
+    with open(os.path.join(pose0, "data.csv"), "w") as f:
+        f.write("#timestamp,px,py,pz,qw,qx,qy,qz\n"
+                + "\n".join(pose_rows) + "\n")
+
+
+def export_tum(seq: "SyntheticSequence", root: str,
+               depth_scale: float = 5000.0) -> tuple:
+    """Write a sequence as a TUM RGB-D tree (rgb/ + depth/ PNG folders, a
+    pre-associated assoc.txt in the reference's pose-rgb-depth line
+    format and a ROS CameraInfo calib.yaml), so that the whole TUM route
+    (association parser, P-matrix calibration, rectification, uint16
+    depth scaling, frame conversion) runs end to end on exact-GT data.
+    The files equal the JAX package's `export_tum` for the same frames.
+    Poses are camera-to-world RDF (load with --input-frame RDF), the
+    quaternions in TUM xyzw order. Returns (assoc_path, calib_path)."""
+    import os
+
+    import cv2
+
+    cam = seq.cam
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    images, depths, q, t = _host_arrays(seq)     # q: (w, x, y, z)
+    lines = []
+    for i in range(len(seq)):
+        ts = float(seq.timestamps[i])
+        name = f"{ts:.6f}.png"
+        cv2.imwrite(os.path.join(root, "rgb", name),
+                    np.clip(images[i], 0, 255).astype(np.uint8))
+        d16 = np.clip(depths[i] * depth_scale, 0, 65535)
+        cv2.imwrite(os.path.join(root, "depth", name),
+                    d16.astype(np.uint16))
+        lines.append(
+            f"{ts:.6f} {t[i, 0]:.9f} {t[i, 1]:.9f} {t[i, 2]:.9f} "
+            f"{q[i, 1]:.9f} {q[i, 2]:.9f} {q[i, 3]:.9f} {q[i, 0]:.9f} "
+            f"{ts:.6f} rgb/{name} {ts:.6f} depth/{name}")
+    assoc = os.path.join(root, "assoc.txt")
+    with open(assoc, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    calib = os.path.join(root, "calib.yaml")
+    K = [cam.fx, 0.0, cam.cx, 0.0, cam.fy, cam.cy, 0.0, 0.0, 1.0]
+    P = [cam.fx, 0.0, cam.cx, 0.0,
+         0.0, cam.fy, cam.cy, 0.0,
+         0.0, 0.0, 1.0, 0.0]
+    with open(calib, "w") as f:
+        f.write(
+            f"image_width: {cam.width}\n"
+            f"image_height: {cam.height}\n"
+            "camera_name: synthetic\n"
+            "camera_matrix: {rows: 3, cols: 3, data: "
+            f"{K}}}\n"
+            "distortion_model: plumb_bob\n"
+            "distortion_coefficients: {rows: 1, cols: 5, "
+            "data: [0, 0, 0, 0, 0]}\n"
+            "projection_matrix: {rows: 3, cols: 4, data: "
+            f"{P}}}\n")
+    return assoc, calib
+
+
 def make_sequence(n_frames: int = 30, cam: Pinhole = QVGA,
                   motion: str = "strafe", fps: float = 30.0,
                   texture_gain: float = 1.0,

@@ -10,7 +10,9 @@ stats.txt column schema src/flame_offline_tum.cc:320-398):
 - false_neg: GT without estimate; true_neg: neither.
 
 Trajectory metrics for tracking mode (`align_trajectory`, `ate_rmse`,
-`rpe`) are host numpy in float64, copied from the JAX package's.
+`rpe`) are host numpy in float64, copied from the JAX package's, as is
+`load_stats_file`; `truth_stats` is the host wrapper of the device
+half, run on the CPU.
 """
 from __future__ import annotations
 
@@ -239,6 +241,27 @@ class TruthStats:
             rmse=float(rec["idepth_rmse"]))
 
 
+def truth_stats(idepths, depth) -> TruthStats:
+    """Host-facing wrapper (reference getTruthStats computation block):
+    the confusion matrix and RMSE of an [H, W] inverse-depth estimate
+    (NaN where invalid) against GT depth in meters, numpy or tensors,
+    computed on the CPU."""
+    idepths = torch.as_tensor(np.asarray(idepths, np.float32))
+    depth = torch.as_tensor(np.asarray(depth, np.float32))
+    cm = depth_confusion_matrix(idepths, depth)
+    tp, tn, fp, fn = (int(cm[k]) for k in ("true_pos", "true_neg",
+                                           "false_pos", "false_neg"))
+    total = float(cm["total_error"])
+    return TruthStats(
+        true_pos=tp, true_neg=tn, false_pos=fp, false_neg=fn,
+        total_error=total,
+        avg_error=total / (tp + fp) if tp + fp else float("nan"),
+        precision=tp / (tp + fp) if tp + fp else float("nan"),
+        recall=tp / (tp + fn) if tp + fn else float("nan"),
+        rmse=float(idepth_rmse(idepths, depth)),
+        idepth_error=cm["idepth_error"].numpy())
+
+
 class StatsFileWriter:
     """Appends the reference's stats.txt rows (exact column schema,
     src/flame_offline_tum.cc:360-396)."""
@@ -263,3 +286,14 @@ class StatsFileWriter:
                     f"{ts.total_error:.6f} {ts.avg_error:.6f} "
                     f"{ts.precision:.6f} {ts.recall:.6f} "
                     f"{total_photo_error:.6f} {avg_photo_error:.6f}\n")
+
+
+def load_stats_file(path: str) -> dict:
+    """Parse a stats.txt (StatsFileWriter) back into column arrays."""
+    with open(path) as f:
+        header = f.readline().split()
+        rows = [[float(x) for x in line.split()] for line in f
+                if line.strip()]
+    arr = np.asarray(rows)
+    return ({c: arr[:, i] for i, c in enumerate(header)} if rows else
+            {c: np.zeros(0) for c in header})

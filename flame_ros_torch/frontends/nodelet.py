@@ -26,12 +26,14 @@ beyond the reference): direct alignment against the latest keyframe's
 dense idepth (`models/tracking.py::track_frame`) with a quality gate,
 constant-velocity coasting, keyframe-ring relocalization after repeated
 failures (`ring_relocalize`) and a windowed pose graph over keyframes
-(`models/pose_graph.py`). The tracker's solves run on the engine's
-device; each result comes back in one device-to-host copy, and the
-per-frame pose bookkeeping (a few quaternion products) is done on those
-host tensors. Each frame is uploaded and pyramided once: the tracker's
-4-level pyramid goes to `Flame.update(img_pyr=)`. Bundle adjustment
-(`ba_refine=True`) is not ported yet: ROADMAP.md queue 1, item 1.
+(`models/pose_graph.py`), optionally refined on every poseframe by
+photometric windowed bundle adjustment over the keyframe ring
+(`ba_refine=True`, `models/ba.py::hybrid_bundle_adjust`, unsharded on the
+engine's device). The tracker's solves run on the engine's device; each
+result comes back in one device-to-host copy, and the per-frame pose
+bookkeeping (a few quaternion products) is done on those host tensors.
+Each frame is uploaded and pyramided once: the tracker's 4-level pyramid
+goes to `Flame.update(img_pyr=)`.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from flame_ros_torch.config import FlameParams
 from flame_ros_torch.eval.metrics import has_ground_truth
 from flame_ros_torch.geometry.camera import Pinhole
 from flame_ros_torch.geometry.se3 import SE3
+from flame_ros_torch.models.ba import gather_ba_inputs, hybrid_bundle_adjust
 from flame_ros_torch.models.engine import Flame
 from flame_ros_torch.models.pose_graph import make_graph, optimize_pose_graph
 from flame_ros_torch.models.tracking import (TrackResult, ring_relocalize,
@@ -84,6 +87,11 @@ class FlameNodelet:
       the latest keyframe's smoothed dense idepth, with a windowed pose
       graph over keyframes. A depth map on the bootstrap frame fixes the
       monocular scale; otherwise it is arbitrary.
+    ba_refine: photometric windowed bundle adjustment over the keyframe
+    ring on every poseframe (meaningful with pose_source="tracking";
+    external poses are ground truth). It solves on the engine's device,
+    whatever the point budget; the point-sharded solver
+    (pose_tracking.ba_sharded=True) is not part of this package.
     The engine runs on `device` (the card unless the caller asks for
     another)."""
 
@@ -95,10 +103,6 @@ class FlameNodelet:
                  trajectory_cap: int = 100_000, device=None):
         if pose_source not in ("external", "tracking"):
             raise ValueError(pose_source)
-        if ba_refine:
-            raise NotImplementedError(
-                "ba_refine (windowed bundle adjustment) is not ported yet: "
-                "ROADMAP.md queue 1, item 1")
         self.pose_source = pose_source
         # Fold the GT confusion matrix into the stats when a frame
         # carries a depth map (offline evaluation harness; in tracking
@@ -112,8 +116,16 @@ class FlameNodelet:
             collections.deque(
                 maxlen=self.trajectory_cap if self.trajectory_cap > 0
                 else None))
+        # Windowed BA on every poseframe; the final cost of each solve.
+        self.ba_refine = ba_refine
+        self.ba_costs: list[float] = []
         self.cam = cam
         self.params = params or FlameParams()
+        if ba_refine and self.params.pose_tracking.ba_sharded:
+            raise ValueError(
+                "pose_tracking.ba_sharded=True: the point-sharded BA solver "
+                "is not ported (ROADMAP.md, \"Do not port\"); leave it None "
+                "to solve on the engine's device")
         self.engine = Flame(cam.width, cam.height, cam=cam,
                             params=self.params, device=device)
         self.queue: ThreadSafeQueue[InputFrame] = ThreadSafeQueue(queue_size)
@@ -410,6 +422,58 @@ class FlameNodelet:
                               + [(nid, SE3(qt[k, :4], qt[k, 4:]))
                                  for k, (nid, _) in enumerate(nodes)])
 
+    def _ba_refine(self):
+        """Photometric windowed bundle adjustment over the live keyframe
+        ring: the gauge is the anchor keyframe (pose_tracking.ba_anchor),
+        whose features give the depth parameters; the refined poses
+        retro-correct the engine through update_poseframe_poses (the
+        reference poseframeCallback semantics, flame_nodelet.cc:414-479,
+        with the correction computed in-process). The selection runs on
+        the device and the host reads it in one copy; the solve's poses
+        and cost come back in one more."""
+        st = self.engine.state
+        ptp = self.params.pose_tracking
+        P = ptp.ba_budget
+        packed = gather_ba_inputs(
+            st.kf_valid, st.kf_ids, st.feat.valid, st.feat.kf_idx,
+            st.feat.uv_ref, st.feat.mu, budget=P, anchor=ptp.ba_anchor)
+        buf = packed.cpu().numpy()
+        K = int(st.kf_valid.shape[0])
+        kf_valid = buf[:K] > 0.5
+        kf_ids = buf[K:2 * K].astype(np.int64)
+        ref_slot = int(buf[2 * K])
+        n_sel = int(buf[2 * K + 1])
+        if kf_valid.sum() < 3 or n_sel < 24:
+            return
+        off = 2 * K + 2
+        uv = packed[off:off + 2 * P].reshape(P, 2)
+        d0 = packed[off + 2 * P:off + 3 * P]
+        pv = packed[off + 3 * P:off + 4 * P] > 0.5
+
+        # Roll the ring so that the gauge sits at index 0.
+        def roll(a):
+            return torch.roll(a, -ref_slot, 0)
+
+        # One round of hybrid BA per poseframe: epipolar matches freed
+        # from the wrong-pose line by 2-D LK supply the reprojection
+        # channels; the per-poseframe cadence re-estimates the matches
+        # from the previous call's poses.
+        res = hybrid_bundle_adjust(
+            roll(st.kf_pyrs), roll(st.kf_q), roll(st.kf_t),
+            roll(st.kf_valid), uv, d0, pv, cam=self.cam, rounds=1,
+            num_iters=4, coarse_iters=2, level=1)
+        host = torch.cat([res.q, res.t, res.final_cost.expand(K, 1)],
+                         dim=1).cpu().numpy()
+        self.ba_costs.append(float(host[0, 7]))
+        qt = np.roll(host[:, :7], ref_slot, axis=0)
+        if not np.isfinite(qt).all():
+            return
+        live = np.flatnonzero(kf_valid)
+        self.engine.update_poseframe_poses(
+            [int(kf_ids[s]) for s in live],
+            SE3(torch.from_numpy(qt[live, :4].copy()),
+                torch.from_numpy(qt[live, 4:].copy())))
+
     def _process(self, frame: InputFrame):
         p = self.params
         if frame.img_id % p.input.subsample_factor:
@@ -486,6 +550,8 @@ class FlameNodelet:
             if is_pf:
                 self._refresh_pending = True
                 self._pose_graph_update(frame.img_id, pose)
+                if self.ba_refine:
+                    self._ba_refine()
         self._n_proc += 1
         self._last_success_time = time_mod.perf_counter()
 

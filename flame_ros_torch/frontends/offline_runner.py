@@ -325,7 +325,9 @@ def run_offline_tracking(frames: Iterable, cam, params: FlameParams,
                          quiet: bool = True, device=None,
                          node: Optional[FlameNodelet] = None) -> RunResult:
     """Online streaming with no GT poses: poses are estimated by the
-    nodelet's direct tracker and windowed pose graph. Input poses, where
+    nodelet's direct tracker and windowed pose graph, and with ba_refine
+    refined on every poseframe by windowed photometric bundle adjustment
+    over the keyframe ring. Input poses, where
     the stream has them, are used only as the GT trajectory for ATE/RPE;
     the first frame's depth fixes the monocular scale (RGB-D-style
     bootstrap); depth on later frames feeds only the GT confusion matrix.
@@ -550,8 +552,12 @@ def main(argv=None):
                         "+ pose graph); input poses are used only for "
                         "ATE/RPE")
     p.add_argument("--ba-refine", action="store_true",
-                   help="tracking mode: windowed photometric BA (not "
-                        "ported yet; refused)")
+                   help="tracking mode: windowed photometric BA over the "
+                        "keyframe ring at poseframe rate")
+    p.add_argument("--profile-stages", action="store_true",
+                   help="populate the reference's stage-timing vocabulary "
+                        "at debug rate (debug.profile_stages; costs host "
+                        "syncs)")
     p.add_argument("--pose-noise-sigma", type=float, default=0.0,
                    help="pose-noise ablation: translation sigma in "
                         "meters applied to every input pose")
@@ -575,9 +581,6 @@ def main(argv=None):
     if args.save_products and not args.out:
         p.error("--save-products needs --out")
     noisy = args.pose_noise_sigma > 0 or args.pose_noise_rot_sigma > 0
-    if args.ba_refine:
-        p.error("--ba-refine (windowed bundle adjustment) is not ported "
-                "yet: ROADMAP.md queue 1, item 1")
     if args.pose_source == "tracking":
         if args.window > 0 or args.pass_in_truth or args.rate > 0:
             p.error("--pose-source tracking is incompatible with "
@@ -591,6 +594,9 @@ def main(argv=None):
     device = resolve_device(args.device)
     params = (FlameParams.from_yaml(args.config) if args.config
               else FlameParams())
+    if args.profile_stages:
+        params = dataclasses.replace(params, debug=dataclasses.replace(
+            params.debug, profile_stages=True))
     if args.zero_mean_ssd:
         params = dataclasses.replace(params, engine=dataclasses.replace(
             params.engine, zero_mean_ssd=True))
@@ -606,6 +612,7 @@ def main(argv=None):
         os.makedirs(args.out, exist_ok=True)
     if args.pose_source == "tracking":
         res = run_offline_tracking(frames, cam, params, out_dir=args.out,
+                                   ba_refine=args.ba_refine,
                                    max_frames=args.frames,
                                    quiet=not args.verbose, device=device)
     elif args.window > 0:

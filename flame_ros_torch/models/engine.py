@@ -63,6 +63,7 @@ from flame_ros_torch.ops.detection import (detect_features,
 from flame_ros_torch.ops.interp import bilinear
 from flame_ros_torch.ops.pyramid import bilinear_pyramid, build_pyramid
 from flame_ros_torch.utils.device import resolve_device
+from flame_ros_torch.utils.stage_profiler import profile_stages
 from flame_ros_torch.utils.stats_tracker import StatsTracker
 
 NUM_LEVELS = 3
@@ -793,6 +794,8 @@ class Flame:
         self._host_idepth_frame = -1
         self._needs_recovery = False
         self.num_failed_frames = 0
+        # Frames since the last debug-rate stage profile.
+        self._frames_since_profile = 0
 
     def shutdown(self):
         """Drop outstanding prefetched windows and pending triangulations
@@ -857,12 +860,27 @@ class Flame:
             else:
                 self._update_direct(img_id, pose, img_gray, is_pf,
                                     idepths_truth, gt, img_pyr)
+            self._maybe_profile_stages(pose, img_gray)
             return True
         except FloatingPointError:
             self._num_poseframes, self._kf_slot = book
             return False
         finally:
             s.tock("update")
+
+    def _maybe_profile_stages(self, pose, img_gray, n_frames: int = 1):
+        """Debug-rate stage profiling (debug.profile_stages): re-measure
+        the reference's stage-timing vocabulary against the current state
+        every `profile_stages_every` frames (utils/stage_profiler.py).
+        It costs host syncs, so it runs only when asked for."""
+        dbg = self.params.debug
+        if not dbg.profile_stages:
+            return
+        self._frames_since_profile += n_frames
+        if self._frames_since_profile < dbg.profile_stages_every:
+            return
+        self._frames_since_profile = 0
+        profile_stages(self, img_gray, pose)
 
     def _on_device(self, x) -> torch.Tensor:
         """An f32 tensor of x (array or tensor) on the engine's device."""
@@ -963,6 +981,8 @@ class Flame:
             for win in self._pack_segments(frames,
                                            self._gt_batch(gt_depths)):
                 self._dispatch_packed(self._upload(win))
+            self._maybe_profile_stages(frames[-1][2], frames[-1][3],
+                                       n_frames=len(frames))
             return True
         except FloatingPointError:
             self._num_poseframes, self._kf_slot = book

@@ -18,6 +18,9 @@ import torch.nn.functional as F
 
 from flame_ros_torch.ops.interp import take_clip
 
+# A CPU scalar operand: it joins a tensor on any device with no copy.
+_ZERO = torch.tensor(0.0)
+
 
 def build_pyramid(img, num_levels: int = 3):
     """img [H, W] -> [L, H, W] padded pyramid (2x2 mean pooling)."""
@@ -57,9 +60,11 @@ def _sample(flat, base, H, W, uv, level, out_of_bounds):
     Wl = W * scale
     Hl = H * scale
     valid = (u >= 0) & (u <= Wl - 1) & (v >= 0) & (v <= Hl - 1)
-    u = torch.minimum(torch.clamp(u, min=0.0),
+    # maximum/minimum (not clamp) so that forward mode splits a tie
+    # 0.5/0.5, as jnp.clip does (bundle adjustment differentiates here).
+    u = torch.minimum(torch.maximum(u, _ZERO),
                       torch.clamp(Wl - 1.000001, min=0.0))
-    v = torch.minimum(torch.clamp(v, min=0.0),
+    v = torch.minimum(torch.maximum(v, _ZERO),
                       torch.clamp(Hl - 1.000001, min=0.0))
     u0 = torch.clamp(torch.minimum(torch.floor(u).to(torch.int32),
                                    (Wl - 2).to(torch.int32)), min=0)

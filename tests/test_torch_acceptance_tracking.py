@@ -1,8 +1,13 @@
-"""Tracking-mode acceptance gates of the port: the five gates of
-tests/test_acceptance_tracking.py that need no bundle adjustment and no
-sharding (easy, low texture, rotation, mav, occlusion 80:89), run
-through the port's `main --pose-source tracking` at VGA over 200 frames
-with the default FlameParams. Each asserts the JAX file's own bounds.
+"""Tracking-mode acceptance gates of the port: the gates of
+tests/test_acceptance_tracking.py (easy, low texture, rotation, mav,
+occlusion 80:89; easy and rotation with windowed bundle adjustment; the
+pod-dense configuration with BA), run through the port's `main
+--pose-source tracking` at VGA over 200 frames with the default
+FlameParams (cfg/pod_dense_ba.yaml for the last). Each asserts the JAX
+file's own bounds. The pod-dense gate solves every BA window unsharded
+on one device (the JAX gate routes it through the point-sharded solver,
+which the port does not have); it asserts the same routing facts of the
+solves it can see: every one at the full 16384-point budget, at least 20.
 
 Slow (hours on the CPU): left out of the tier-1 run. They run on the card
 where one exists, else on the CPU:
@@ -12,11 +17,16 @@ where one exists, else on the CPU:
 import contextlib
 import io
 import json
+import os
 
 import pytest
 import torch
 
+from flame_ros_torch.frontends import nodelet as nodelet_mod
 from flame_ros_torch.frontends.offline_runner import main
+
+POD_DENSE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "cfg", "pod_dense_ba.yaml")
 
 
 def _run(*extra):
@@ -45,6 +55,16 @@ def test_tracking_easy_vga200():
 
 
 @pytest.mark.slow
+def test_tracking_easy_ba_refine_vga200():
+    s = _run("--ba-refine")
+    assert s["frames"] == 200 and s["failed"] == 0
+    assert s["ate_rmse"] < 0.008 * s["gt_path_length"], s
+    assert s["ate_rmse_sim3"] < 0.01, s
+    assert s["idepth_rmse"] < 0.05, s
+    assert s["recall"] > 0.82, s
+
+
+@pytest.mark.slow
 def test_tracking_low_texture_vga200():
     s = _run("--texture-gain", "0.3")
     assert s["frames"] == 200 and s["failed"] == 0
@@ -68,6 +88,17 @@ def test_tracking_rotation_vga200():
 
 
 @pytest.mark.slow
+def test_tracking_rotation_ba_vga200():
+    s = _run("--motion", "rotation", "--ba-refine")
+    assert s["frames"] == 200 and s["failed"] == 0
+    assert s["rpe_rot_rmse_deg"] < 0.03, s
+    assert s["rpe30_rot_rmse_deg"] < 0.5, s
+    assert s["ate_rmse_sim3"] < 0.015, s
+    assert s["ate_rmse"] < 0.03, s
+    assert s["recall"] > 0.75, s
+
+
+@pytest.mark.slow
 def test_tracking_mav_vga200():
     s = _run("--motion", "mav")
     assert s["frames"] == 200 and s["failed"] == 0
@@ -87,3 +118,23 @@ def test_tracking_occlusion_recovery_vga200():
     assert s["ate_rmse"] < 0.005 * s["gt_path_length"], s
     assert s["idepth_rmse"] < 0.05, s
     assert s["recall"] > 0.85, s
+
+
+@pytest.mark.slow
+def test_pod_dense_ba_vga(monkeypatch):
+    calls = []
+    orig = nodelet_mod.hybrid_bundle_adjust
+
+    def spy(*a, **kw):
+        calls.append(a[5].shape[0])   # P of this solve
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(nodelet_mod, "hybrid_bundle_adjust", spy)
+    s = _run("--ba-refine", "--config", POD_DENSE)
+    assert s["frames"] == 200 and s["failed"] == 0, s
+    assert s["track_failed_frames"] <= 4, s
+    assert len(calls) >= 20, len(calls)
+    assert all(p == 16384 for p in calls), calls[:4]
+    assert s["ate_rmse"] < 0.18, s
+    assert s["idepth_rmse"] < 0.15, s
+    assert s["recall"] > 0.65, s

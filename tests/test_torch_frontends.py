@@ -13,6 +13,10 @@ routes, on the CPU.
 - `offline_runner.main` over a TUM and an ASL tree prints the JAX
   runner's summary keys; the argument checks; the rate throttle and the
   truth harness on the CLI.
+- The host leftovers: `export_tum`/`export_asl` write the JAX package's
+  trees byte for byte, `truth_stats` equals its counts (floats to 1e-6
+  relative), and `load_stats_file` reads a written stats.txt back as
+  the JAX loader does.
 """
 import io
 import json
@@ -25,16 +29,21 @@ import torch
 import yaml
 
 from flame_ros_tpu.datasets import asl as jasl
+from flame_ros_tpu.datasets import synthetic as jsyn
 from flame_ros_tpu.datasets import tum as jtum
 from flame_ros_tpu.datasets.associate import associate as jassociate
 from flame_ros_tpu.geometry import camera as jcam
+from flame_ros_tpu.eval import metrics as jmet
 from flame_ros_tpu.geometry import frames as jframes
+from flame_ros_tpu.geometry.se3 import SE3 as JSE3
 from flame_ros_tpu.streams import live as jlive
 from flame_ros_torch.config import FlameParams
 from flame_ros_torch.datasets import asl as tasl
 from flame_ros_torch.datasets import tum as ttum
 from flame_ros_torch.datasets.associate import associate as tassociate
-from flame_ros_torch.datasets.synthetic import make_sequence
+from flame_ros_torch.datasets.synthetic import (export_asl, export_tum,
+                                                make_sequence)
+from flame_ros_torch.eval import metrics as tmet
 from flame_ros_torch.frontends import offline_runner
 from flame_ros_torch.frontends.serve import FlameServer, recv_msg, send_msg
 from flame_ros_torch.geometry import camera as tcam
@@ -257,6 +266,55 @@ def test_host_helpers_match_jax(rng):
         np.testing.assert_array_equal(a[4], b[4])
         np.testing.assert_array_equal(a[5], b[5])
         assert a[4].shape == (H // 2, W // 2)
+
+
+def test_exporters_and_truth_stats_match_jax(tmp_path, rng):
+    """export_tum / export_asl write the JAX package's trees file by file
+    from the same frames; truth_stats equals the JAX package's; a
+    stats.txt written by StatsFileWriter loads back (load_stats_file) as
+    the JAX package's loader reads it."""
+    s = make_sequence(3, CAM, motion="strafe", device="cpu")
+    js = jsyn.SyntheticSequence(
+        cam=jcam.Pinhole(CAM.fx, CAM.fy, CAM.cx, CAM.cy, W, H),
+        images=s.images.numpy(), depths=s.depths.numpy(),
+        poses=JSE3(s.poses.q.numpy(), s.poses.t.numpy()),
+        timestamps=s.timestamps)
+    for name, tfn, jfn in (("tum", export_tum, jsyn.export_tum),
+                           ("asl", export_asl, jsyn.export_asl)):
+        a, b = tmp_path / f"{name}_port", tmp_path / f"{name}_jax"
+        tfn(s, str(a))
+        jfn(js, str(b))
+        fa = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+        fb = sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+        assert fa == fb and len(fa) >= 7, (name, fa, fb)
+        for f in fa:
+            assert (a / f).read_bytes() == (b / f).read_bytes(), (name, f)
+
+    idepths = rng.uniform(0.2, 2.0, (H, W)).astype(np.float32)
+    idepths[rng.random((H, W)) < 0.3] = np.nan
+    depth = rng.uniform(0.5, 4.0, (H, W)).astype(np.float32)
+    depth[rng.random((H, W)) < 0.2] = 0.0
+    a, b = tmet.truth_stats(idepths, depth), jmet.truth_stats(idepths, depth)
+    for k in ("true_pos", "true_neg", "false_pos", "false_neg"):
+        assert getattr(a, k) == getattr(b, k), k
+    for k in ("total_error", "avg_error", "precision", "recall", "rmse"):
+        assert getattr(a, k) == pytest.approx(getattr(b, k), rel=1e-6), k
+    np.testing.assert_allclose(a.idepth_error, np.asarray(b.idepth_error),
+                               rtol=1e-6, equal_nan=True)
+
+    w = tmet.StatsFileWriter(str(tmp_path / "stats"))
+    for i in range(4):
+        w.append(i, 0.1 * i, 12.5 + i, 100 + i, 180 + i, a, 1.25 * i, 0.5)
+    got, ref = tmet.load_stats_file(w.path), jmet.load_stats_file(w.path)
+    assert list(got) == list(ref) == list(tmet.STATS_COLUMNS)
+    for k in got:
+        np.testing.assert_array_equal(got[k], ref[k])
+    np.testing.assert_array_equal(got["num_vtx"], [100, 101, 102, 103])
+    assert got["true_pos"].tolist() == [a.true_pos] * 4
+    np.testing.assert_allclose(got["timestamp"], [0.0, 0.1, 0.2, 0.3])
+    empty = tmp_path / "empty.txt"
+    empty.write_text(" ".join(tmet.STATS_COLUMNS) + "\n")
+    assert all(v.size == 0 for v in tmet.load_stats_file(str(empty)).values())
 
 
 def test_server_round_trip():

@@ -3,9 +3,9 @@
 - it imports nothing of JAX or of the JAX package, not even indirectly:
   a CPU run of the per-frame and the windowed, deferred paths, the mesh
   getters, the nodelet and the server, and tracking mode (the tracker,
-  the ring relocalization and the pose graph through
-  `run_offline_tracking` with an occlusion, the stress knobs, ATE/RPE)
-  leaves "jax" out of sys.modules
+  the ring relocalization, the pose graph and windowed bundle adjustment
+  through `run_offline_tracking` with an occlusion, the stage profiler,
+  the stress knobs, ATE/RPE) leaves "jax" out of sys.modules
   (checked in a fresh interpreter, since the test process itself
   imports JAX), and no file of it names either in an import;
 - importing it turns TF32 off for matmul and cuDNN (the reference pins
@@ -78,7 +78,10 @@ send_msg(c, {"type": "frame", "img_id": 0, "time": 0.0,
 assert recv_msg(c)[0]["type"] == "stats"
 srv.stop()
 c.close()
-# Tracking mode: tracker, ring relocalization, pose graph, ATE/RPE.
+# Tracking mode: tracker, ring relocalization, pose graph, windowed BA,
+# ATE/RPE.
+import flame_ros_torch.models.ba
+import flame_ros_torch.utils.stage_profiler
 from flame_ros_torch.frontends.offline_runner import (run_offline_tracking,
                                                       with_occlusion)
 tseq = make_sequence(8, cam, texture_gain=0.8, exposure_amp=0.1,
@@ -86,9 +89,12 @@ tseq = make_sequence(8, cam, texture_gain=0.8, exposure_amp=0.1,
 tparams = FlameParams.from_dict({"engine": {"max_features": 256,
                                             "max_keyframes": 4},
                                  "input": {"poseframe_subsample_factor": 2},
-                                 "pose_tracking": {"relocalize_after": 1}})
+                                 "pose_tracking": {"relocalize_after": 1,
+                                                   "ba_anchor": "most_owned"},
+                                 "debug": {"profile_stages": True,
+                                           "profile_stages_every": 4}})
 res = run_offline_tracking(with_occlusion(synthetic_frames(tseq), 5, 5),
-                           cam, tparams, device="cpu")
+                           cam, tparams, ba_refine=True, device="cpu")
 assert res.track_failed_frames >= 1 and res.frames_processed >= 3, res
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flame_ros_tpu"))
@@ -143,6 +149,11 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--dataset", "synthetic", "--frames", "2",
               "--pose-source", "tracking"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FlameNodelet(QVGA, pose_source="tracking", ba_refine=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--dataset", "synthetic", "--frames", "2",
+              "--pose-source", "tracking", "--ba-refine"])
     # Explicit CPU works.
     assert Flame(QVGA.width, QVGA.height, cam=QVGA,
                  device="cpu").device.type == "cpu"

@@ -13,10 +13,10 @@ which shares their JAX compiles with the nodelet stream there).
   JAX `make_sequence`'s transforms applied to the same base frames, to
   1e-4 gray levels.
 - The tracking failure gate (`FlameNodelet._track_ok`) on the cases of
-  tests/test_tracking_recovery.py, and the refusal of
-  `debug.profile_stages` (no JAX needed).
+  tests/test_tracking_recovery.py, `ba_refine=True` accepted and
+  `pose_tracking.ba_sharded=True` refused, and `debug.profile_stages`
+  filling the stage-timing keys on a 7-frame run (no JAX needed).
 """
-import dataclasses
 from types import SimpleNamespace
 
 import jax
@@ -38,8 +38,11 @@ from flame_ros_torch.frontends.nodelet import FlameNodelet
 from flame_ros_torch.frontends.offline_runner import \
     with_pose_noise as t_with_pose_noise
 from flame_ros_torch.geometry.camera import Pinhole as TCam
+from flame_ros_torch.geometry.se3 import SE3
 from flame_ros_torch.models import tracking as ttr
+from flame_ros_torch.models.engine import Flame
 from flame_ros_torch.ops.pyramid import build_pyramid
+from flame_ros_torch.utils.stage_profiler import STAGES
 
 # Small shapes: one intra-op thread keeps these tests from
 # oversubscribing the CPU when the suite runs in parallel workers.
@@ -150,15 +153,39 @@ def test_track_gate_cases():
     assert not node._track_ok(_result(0.0, 0, 0))            # degenerate
     assert not node._track_ok(_result(10.0, 300, 1500))      # few inliers
     assert not node._track_ok(_result(float("nan"), 1000, 1500))
-    with pytest.raises(NotImplementedError, match="item 1"):
-        FlameNodelet(TCAM, FlameParams(), pose_source="tracking",
-                     ba_refine=True, device="cpu")
+    # Bundle adjustment solves on the engine's device; the point-sharded
+    # solver is not part of the port.
+    assert FlameNodelet(TCAM, FlameParams(), pose_source="tracking",
+                        ba_refine=True, device="cpu").ba_refine
+    sharded = FlameParams.from_dict({"pose_tracking": {"ba_sharded": True}})
+    with pytest.raises(ValueError, match="Do not port"):
+        FlameNodelet(TCAM, sharded, pose_source="tracking", ba_refine=True,
+                     device="cpu")
 
 
 def test_profile_stages_refused():
-    p = FlameParams()
-    p = dataclasses.replace(p, debug=dataclasses.replace(
-        p.debug, profile_stages=True))
-    with pytest.raises(ValueError, match="profile_stages"):
-        p.resolved("cpu")
+    """debug.profile_stages is accepted and, every profile_stages_every
+    frames, fills the stage-timing keys (tests/test_engine.py's
+    test_profile_stages_populates_timing_vocabulary, on the port): the
+    12 stages the profiler re-times plus the engine's own "update"."""
+    p = FlameParams.from_dict({
+        "engine": {"max_features": 256, "max_keyframes": 4},
+        "debug": {"profile_stages": True, "profile_stages_every": 5}})
+    assert p.resolved("cpu").debug.profile_stages is True
     assert FlameParams().resolved("cpu").debug.profile_stages is False
+    seq = make_sequence(7, TCAM, device="cpu")
+    engine = Flame(W, H, cam=TCAM, params=p, device="cpu")
+    for i in range(7):
+        assert engine.update(float(seq.timestamps[i]), i,
+                             SE3(seq.poses.q[i], seq.poses.t[i]),
+                             seq.images[i].numpy(), i % 3 == 0)
+    t = engine.stats_.timings()
+    keys = set(STAGES) | {"update"}
+    assert len(keys) == 13 and keys <= set(t), sorted(keys - set(t))
+    assert all(t[k] >= 0.0 for k in keys)
+    # The hot stages carry real measurements; the disabled filters 0.
+    for k in ("update_idepths", "sync_graph", "triangulate"):
+        assert t[k] > 0.0, k
+    assert t["median_filter"] == t["lowpass_filter"] == 0.0
+    rec = engine.stats_.to_record(7, 0.0)
+    assert rec["update_idepths_ms"] == t["update_idepths"]

@@ -12,18 +12,21 @@ renderer (30 fps inter-frame motion).
   within 1e-4).
 - The stream: both nodelets (256 feature slots, 4 keyframes, a poseframe
   every 3rd frame, so that the pose graph runs: its fourth node, frame
-  9, optimizes the window) take the same 13 numpy frames, depth on frame
-  0 only. The same frames enter the trajectory, the same frames become
-  poseframes, the poses agree to 1e-3 (reached: ~1e-4), the engine's
-  keyframe poses after the pose-graph correction to 1e-3, the accepted
-  track costs to 1e-3 relative, and the failure and relocalization
-  counts are equal.
-- Occlusion: frames 5-8 replaced by white flashes. The same frames fail
-  (every occluded one, and none enters the trajectory) and the failure
-  and relocalization counts are equal. The recovery alignment runs from
-  a seed coasted over five frames, where f32 order noise flips points
-  across the Huber and bounds masks, so the poses after it are not held
-  to the clean stream's 1e-3.
+  9, optimizes the window; windowed BA on every poseframe from the
+  third keyframe on, anchored on the keyframe owning the most features)
+  take the same 13 numpy frames, depth on frame 0 only. The same frames
+  enter the trajectory, the same frames become poseframes, the poses
+  agree to 1e-3 (reached: ~1e-4), the engine's keyframe poses after the
+  pose-graph and BA corrections to 1e-3, the accepted track costs to
+  1e-3 relative, BA runs as often in both (at least twice) with its
+  costs to 1e-3 relative, and the failure and relocalization counts
+  are equal.
+- Occlusion (no BA): frames 5-8 replaced by white flashes. The same
+  frames fail (every occluded one, and none enters the trajectory) and
+  the failure and relocalization counts are equal. The recovery
+  alignment runs from a seed coasted over five frames, where f32 order
+  noise flips points across the Huber and bounds masks, so the poses
+  after it are not held to the clean stream's 1e-3.
 - `optimize_pose_graph` on the three cases of tests/test_pose_graph.py,
   each at the shape of the stream's window solve (4 nodes, 3 edges, 5
   iterations) so that its JAX compile is reused: a noisy chain, a gauge
@@ -35,11 +38,14 @@ renderer (30 fps inter-frame motion).
   case has every residual ~0, where `SE3.log`'s safe branches matter).
 - `ring_relocalize` on the JAX nodelet's engine state carried across
   (`state_from_numpy`): the same argmin slot, costs to 1e-4 relative,
-  equal feature counts.
+  equal feature counts; and the nodelet's BA step on that state:
+  `gather_ba_inputs` bit for bit, `hybrid_bundle_adjust` (rounds=1, the
+  nodelet's schedule) on the ring rolled to the gauge, q, t and idepths
+  to 1e-4, the final cost to 1e-4 relative.
 - The server in tracking mode: frames sent with no pose, a stats record
   with the tracking fields returned for each.
-- Runner `main --pose-source tracking --device cpu`: its JSON keys equal
-  the JAX `main`'s, and `--ba-refine` is refused.
+- Runner `main --pose-source tracking --device cpu`, with and without
+  `--ba-refine`: its JSON keys equal the JAX `main`'s.
 """
 import contextlib
 import io
@@ -57,6 +63,7 @@ from flame_ros_tpu.config import FlameParams as JParams
 from flame_ros_tpu.frontends.nodelet import FlameNodelet as JNode
 from flame_ros_tpu.geometry.camera import Pinhole as JCam
 from flame_ros_tpu.geometry.se3 import SE3 as JSE3
+from flame_ros_tpu.models import ba as jba
 from flame_ros_tpu.models import pose_graph as jpg
 from flame_ros_tpu.models import tracking as jtr
 from flame_ros_tpu.models.tracking import ring_relocalize as j_reloc
@@ -67,6 +74,7 @@ from flame_ros_torch.frontends.offline_runner import main
 from flame_ros_torch.frontends.serve import FlameServer, recv_msg, send_msg
 from flame_ros_torch.geometry.camera import Pinhole as TCam
 from flame_ros_torch.geometry.se3 import SE3 as TSE3
+from flame_ros_torch.models import ba as tba
 from flame_ros_torch.models import pose_graph as tpg
 from flame_ros_torch.models import tracking as ttr
 from flame_ros_torch.models.engine import state_from_numpy, state_to_numpy
@@ -82,6 +90,10 @@ JCAM = JCam(105.0, 105.0, 63.5, 47.5, W, H)
 TCAM = TCam(105.0, 105.0, 63.5, 47.5, W, H)
 SMALL = {"engine": {"max_features": 256, "max_keyframes": 4},
          "input": {"poseframe_subsample_factor": 3}}
+# Windowed BA in the clean stream. At this size a new keyframe owns only
+# 8-17 features, under the 24 a solve needs, so the gauge is the keyframe
+# owning the most.
+SMALL_BA = dict(SMALL, pose_tracking={"ba_anchor": "most_owned"})
 N_STREAM = 13
 IDENT = (np.array([1, 0, 0, 0], np.float32), np.zeros(3, np.float32))
 OCCLUDED = range(5, 9)
@@ -169,19 +181,20 @@ def _stream(node, seq, occluded=()):
     return node, stats
 
 
-def _pair(seq, occluded=()):
-    return {"jax": _stream(JNode(JCAM, JParams.from_dict(SMALL),
-                                 pose_source="tracking",
+def _pair(seq, occluded=(), params=SMALL):
+    ba = params is SMALL_BA
+    return {"jax": _stream(JNode(JCAM, JParams.from_dict(params),
+                                 pose_source="tracking", ba_refine=ba,
                                  eval_gt_depth=True), seq, occluded),
-            "torch": _stream(TNode(TCAM, TParams.from_dict(SMALL),
-                                   pose_source="tracking",
+            "torch": _stream(TNode(TCAM, TParams.from_dict(params),
+                                   pose_source="tracking", ba_refine=ba,
                                    eval_gt_depth=True, device="cpu"),
                              seq, occluded)}
 
 
 @pytest.fixture(scope="module")
 def streams(seq):
-    return _pair(seq)
+    return _pair(seq, params=SMALL_BA)
 
 
 @pytest.fixture(scope="module")
@@ -210,6 +223,9 @@ def test_tracking_stream_matches_jax(streams):
         np.testing.assert_allclose(tp.q.numpy(), np.asarray(jp.q), atol=1e-3)
         np.testing.assert_allclose(tp.t.numpy(), np.asarray(jp.t), atol=1e-3)
     np.testing.assert_allclose(tn.track_costs, jn.track_costs, rtol=1e-3)
+    # Windowed BA ran on the same poseframes, with the same costs.
+    assert len(tn.ba_costs) == len(jn.ba_costs) >= 2
+    np.testing.assert_allclose(tn.ba_costs, jn.ba_costs, rtol=1e-3)
     assert (tn.n_track_failed_frames, tn.n_relocalizations) == \
         (jn.n_track_failed_frames, jn.n_relocalizations) == (0, 0)
     assert [r["img_id"] for r in ts] == [r["img_id"] for r in js]
@@ -267,6 +283,40 @@ def test_ring_relocalize_matches_jax(streams, seq):
                                atol=1e-4)
     np.testing.assert_allclose(tt.numpy()[fin], np.asarray(jt)[fin],
                                atol=1e-4)
+
+    # The nodelet's BA step on the same state: the packed gather bit for
+    # bit, then the solve on the ring rolled to the gauge (the nodelet's
+    # arguments, so the stream's JAX compiles are reused).
+    P = TParams.from_dict(SMALL).pose_tracking.ba_budget
+    jbuf = np.asarray(jba.gather_ba_inputs(
+        st.kf_valid, st.kf_ids, st.feat.valid, st.feat.kf_idx,
+        st.feat.uv_ref, st.feat.mu, budget=P, anchor="most_owned"))
+    tpk = tba.gather_ba_inputs(ts.kf_valid, ts.kf_ids, ts.feat.valid,
+                               ts.feat.kf_idx, ts.feat.uv_ref, ts.feat.mu,
+                               budget=P, anchor="most_owned")
+    np.testing.assert_array_equal(tpk.numpy(), jbuf)
+    K = int(ts.kf_valid.shape[0])
+    ref = int(jbuf[2 * K])
+    off = 2 * K + 2
+    pts = (jbuf[off:off + 2 * P].reshape(P, 2), jbuf[off + 2 * P:off + 3 * P],
+           jbuf[off + 3 * P:] > 0.5)
+    assert int(jbuf[2 * K + 1]) >= 24 and (jbuf[:K] > 0.5).sum() >= 3
+    kw = dict(rounds=1, num_iters=4, coarse_iters=2, level=1)
+    jres = jba.hybrid_bundle_adjust(
+        *(jnp.roll(a, -ref, axis=0) for a in (st.kf_pyrs, st.kf_q, st.kf_t,
+                                              st.kf_valid)),
+        *(jnp.asarray(a) for a in pts), cam=JCAM, **kw)
+    tres = tba.hybrid_bundle_adjust(
+        *(torch.roll(a, -ref, 0) for a in (ts.kf_pyrs, ts.kf_q, ts.kf_t,
+                                           ts.kf_valid)),
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in pts), cam=TCAM,
+        **kw)
+    for k in ("q", "t", "idepths"):
+        np.testing.assert_allclose(getattr(tres, k).numpy(),
+                                   np.asarray(getattr(jres, k)), rtol=0,
+                                   atol=1e-4, err_msg=k)
+    np.testing.assert_allclose(float(tres.final_cost),
+                               float(jres.final_cost), rtol=1e-4)
 
 
 def _chain(rng, K):
@@ -396,8 +446,15 @@ def test_runner_tracking_cli_keys(monkeypatch):
         jrunner.main(["--dataset", "synthetic", "--frames", "3",
                       "--pose-source", "tracking"])
     assert keys == set(json.loads(out.getvalue().strip().splitlines()[-1]))
-    for bad in (["--ba-refine"], ["--window", "6"],
-                ["--pose-noise-sigma", "0.01"]):
+    # --ba-refine runs, with the same keys.
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = main(["--dataset", "synthetic", "--frames", "3",
+                    "--pose-source", "tracking", "--ba-refine", "--device",
+                    "cpu"])
+    assert res.frames_processed >= 1
+    assert keys == set(json.loads(out.getvalue().strip().splitlines()[-1]))
+    for bad in (["--window", "6"], ["--pose-noise-sigma", "0.01"]):
         with pytest.raises(SystemExit):
             main(["--dataset", "synthetic", "--frames", "3",
                   "--pose-source", "tracking", "--device", "cpu", *bad])

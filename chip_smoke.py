@@ -80,7 +80,32 @@ Phases, each printed as one line:
    `hybrid_bundle_adjust` ms per call (p50, max), its device launches and
    card-busy ms per call, `bundle_adjust_window`'s alone and checked to
    make no host sync, `ba_refine`'s share of its poseframe's ms, and
-   tracking+BA ms/frame p50/p95 beside phase 8's and phase 4's.
+   tracking+BA ms/frame p50/p95 beside phase 8's and phase 4's;
+10. many streams on one card (`parallel/multi_stream.py`), phase 4's 60
+   frames, stream k fed frame max(i - k, 0), every op under
+   torch.func.vmap checked to have a batching rule: (a) S = 4 with
+   synchronous triangulation — one launch of the batched v4 kernel per
+   update covering the 4 streams (wrapper and device counters) and no
+   launch of v4, v2 or v3, its id buffers on the runner's own inputs on
+   seven frames (three poseframes) equal to the plain version bit for bit
+   (and to the plain formulation up to order_split), no host sync in
+   `batched_full_step`, each stream's mean rmse, recall and final
+   coverage within 1 % / 0.01 / 0.01 of a single engine fed its frames,
+   and the state leaves equal to that engine's at frames 6 and 60
+   printed; (c) a checkpoint at frame 30 loaded into a fresh runner,
+   both run to frame 60 and equal bit for bit, get_meshes and
+   get_idepth_maps; (b) S = 1, 2, 4, 8 with deferred triangulation:
+   ms per update p50/p95 (to the stats read), aggregate frames/s,
+   launches and card-busy ms per update (profiler), host ms of a
+   poseframe round's Delaunay builds, rounds dropped, beside phase 4's
+   ms/frame, the launches per update at S = 8 within 1.25x of S = 1;
+   and the batched kernel timed at S = 1, 4 and 8 beside S times the
+   single-image bound;
+11. viz on phase 4's final engine: the six debug products (the idepthmap
+   product colored exactly on the finite pixels of the idepth map), host
+   ms per product, the final mesh as PLY and as the HTML viewer read back
+   (vertex and face counts), and a FlameServer on the card streaming 10
+   frames to a LiveMeshViewer whose mesh JSON grows.
 
 Any failure exits non-zero. The line before the last is the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`; before
@@ -490,7 +515,7 @@ def launch_counts(rc, dev):
     return ({"v4": rc.rasterize_tri_ids_v4.launches,
              "v2": rc.rasterize_tri_ids_v2.launches,
              "v3": rc.rasterize_tri_ids_v3.launches},
-            dict(zip(rc.WORK_SLOTS, rc.work_counters(dev).tolist())))
+            dict(zip(("v4", "v2", "v3"), rc.work_counters(dev).tolist())))
 
 
 def stream_windows(engine, frames, gts, win, depth=2):
@@ -1298,6 +1323,455 @@ def tracking_ba_path(seq, ms4, ms8, params, cam, dev, out):
     return summary
 
 
+class BatchedRecorder:
+    """Wraps `rasterize_tri_ids_v4_batched` of the raster_cuda module: on
+    the calls made while `keep` is set, the inputs and output are kept
+    (copies), so that the runner's own raster can be recomputed. The
+    wrapper's counters stay the wrapped function's."""
+
+    def __init__(self, rc):
+        self.rc, self.fn, self.keep, self.calls = rc, \
+            rc.rasterize_tri_ids_v4_batched, False, []
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, v):
+        self.fn.launches = v
+
+    @property
+    def images(self):
+        return self.fn.images
+
+    @images.setter
+    def images(self, v):
+        self.fn.images = v
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        if self.keep:
+            self.calls.append(([a.clone() for a in args], out.clone()))
+        return out
+
+    def __enter__(self):
+        self.rc.rasterize_tri_ids_v4_batched = self
+        return self
+
+    def __exit__(self, *exc):
+        self.rc.rasterize_tri_ids_v4_batched = self.fn
+
+
+def vmap_fallback_errors():
+    """A context in which an op without a batching rule under
+    torch.func.vmap (torch's "performance drop" warning) raises."""
+    import contextlib
+    import warnings
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*performance drop.*")
+            torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+            try:
+                yield
+            finally:
+                torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    return ctx()
+
+
+def bare_batched_launch(rc, args, H, W, rt=2):
+    """One launch of the batched v4 kernel alone, its inputs prepared
+    once; fn.slab_bytes the bytes of its inputs."""
+    import torch
+    lib = rc._get_lib()
+    C, lo_pos, hi_pos, counts = rc.v4_setup_batched(
+        *args, height=H, row_tile=rt, long_thresh=48.0)
+    S, T = args[1].shape[:2]
+    out = torch.empty((S, H * W), dtype=torch.int32, device=args[0].device)
+    work = torch.zeros(len(rc.WORK_SLOTS), dtype=torch.int32,
+                       device=args[0].device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def fn():
+        lib.raster_v4_batched_launch(
+            C.data_ptr(), S, T, lo_pos.data_ptr(), hi_pos.data_ptr(),
+            counts.data_ptr(), out.data_ptr(), H, W, rt, work.data_ptr(),
+            stream)
+    fn.keep = (C, lo_pos, hi_pos, counts)
+    fn.slab_bytes = sum(t.numel() * t.element_size() for t in fn.keep)
+    return fn
+
+
+def ms_frames(seq_np, i, S, SE3):
+    """Frame i of the runner's S streams: stream k gets frame max(i - k,
+    0) (tests/test_multi_stream.py's stream 1 one frame behind)."""
+    ids = [max(i - k, 0) for k in range(S)]
+    imgs, depths, q, t, ts = seq_np
+    return ([(float(ts[j]), j, SE3.from_quat_trans(q[j], t[j]), imgs[j])
+             for j in ids], depths[ids])
+
+
+def truth_summary(recs):
+    """Mean rmse and recall over a stream's per-frame stats, and its last
+    frame's coverage (the stats' raster coverage)."""
+    import numpy as np
+    from flame_ros_torch.eval.metrics import TruthStats
+    ts = [TruthStats.from_record(r) for r in recs]
+    return {"mean_rmse": float(np.nanmean([t.rmse for t in ts])),
+            "mean_recall": float(np.nanmean([t.recall for t in ts])),
+            "final_coverage": float(recs[-1]["coverage"])}
+
+
+def multi_stream_path(seq, ms4, params, cam, dev, out):
+    """Phase 10 over phase 4's sequence `seq` (ms4: phase 4's steady host
+    ms per frame): (a) correctness at S = 4, (b) throughput at S = 1, 2, 4,
+    8, (c) checkpoint and getters. Returns the batched kernel's numbers
+    for the kernels line."""
+    import numpy as np
+    import torch
+    from flame_ros_torch.geometry.se3 import SE3
+    from flame_ros_torch.models.engine import EngineState, Flame, state_leaves
+    from flame_ros_torch.ops import raster as raster_ops
+    from flame_ros_torch.ops.epipolar import FeatureFilterState
+    from flame_ros_torch.ops import raster_cuda as rc
+    from flame_ros_torch.parallel import multi_stream as ms_mod
+    from flame_ros_torch.parallel.multi_stream import MultiStreamRunner
+    H, W = cam.height, cam.width
+    n = len(seq)
+    imgs = torch.clamp(seq.images, 0, 255).to(torch.uint8).cpu().numpy()
+    seq_np = (imgs, seq.depths.cpu().numpy(), seq.poses.q.cpu().numpy(),
+              seq.poses.t.cpu().numpy(), np.asarray(seq.timestamps))
+    pf_every = params.input.poseframe_subsample_factor
+    checked = (7, 12, 17, 30, 36, 47, 57)   # 12, 30 and 36 are poseframes
+    S = 4
+    leaf_names = ([f"feat.{k}" for k in FeatureFilterState._fields]
+                  + list(EngineState._fields[1:]))
+
+    # (a) correctness, S = 4, synchronous triangulation -----------------
+    ckpt_path = os.path.join(out, "multi_stream_ckpt")
+    with vmap_fallback_errors():
+        runner = MultiStreamRunner(cam, S, params=params, device=dev)
+        recs = [[] for _ in range(S)]
+        snaps = {}
+        rc.reset_counters()
+        with BatchedRecorder(rc) as rec:
+            for i in range(n):
+                frames, gts = ms_frames(seq_np, i, S, SE3)
+                rec.keep = i in checked
+                assert runner.update(frames, gt_depths=gts)
+                for k, r in enumerate(runner.flush_stats()):
+                    recs[k].append(r)
+                if i + 1 in (6, n):
+                    snaps[i + 1] = [t.clone() for t in
+                                    state_leaves(runner.states)]
+                if i + 1 == 30:
+                    runner.save_checkpoint(ckpt_path)
+        launches = {"v4": rc.rasterize_tri_ids_v4.launches,
+                    "v2": rc.rasterize_tri_ids_v2.launches,
+                    "v3": rc.rasterize_tri_ids_v3.launches,
+                    "v4_batched": rc.rasterize_tri_ids_v4_batched.launches,
+                    "v4_batched_images":
+                        rc.rasterize_tri_ids_v4_batched.images}
+        work = dict(zip(rc.WORK_SLOTS, rc.work_counters(dev).tolist()))
+        assert launches == {"v4": 0, "v2": 0, "v3": 0, "v4_batched": n,
+                            "v4_batched_images": n * S}, launches
+        assert work == {"v4": 0, "v2": 0, "v3": 0, "v4_batched": n,
+                        "v4_batched_images": n * S}, work
+        # The batched kernel on the runner's own inputs against its plain
+        # version, and each image against the plain formulation (v4's
+        # evaluation-order split allowed, order_split).
+        assert len(rec.calls) == len(checked), len(rec.calls)
+        split, max_err = [], 0
+        for (args, got), i in zip(rec.calls, checked):
+            want = rc.rasterize_tri_ids_v4_batched_ref(*args, height=H,
+                                                       width=W)
+            max_err = max(max_err, int((got.long() - want.long()).abs()
+                                       .max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"frame {i}: batched v4 != plain")
+            for k in range(S):
+                n_px, explained = order_split(
+                    torch, rc, args[0][k], args[1][k], got[k],
+                    raster_ops.rasterize_tri_ids(
+                        args[0][k], args[1][k], args[2][k], height=H,
+                        width=W))
+                assert explained, (i, k)
+                split.append(n_px)
+        kernel_args = rec.calls[-1][0]
+        # No host sync in batched_full_step (a frame and a poseframe) on
+        # inputs already on the card.
+        ids = [max(n - 1 - k, 0) for k in range(S)]
+        b_imgs = torch.from_numpy(imgs[ids]).to(dev)
+        b_gt = torch.from_numpy(seq_np[1][ids]).to(dev)
+        b_meta = torch.zeros((S, 10), dtype=torch.float32, device=dev)
+        b_meta[:, :4] = seq.poses.q[ids].to(dev)
+        b_meta[:, 4:7] = seq.poses.t[ids].to(dev)
+        b_meta[:, 7] = torch.tensor(ids, dtype=torch.float32, device=dev)
+        for is_pf in (False, True):
+            no_sync(lambda: ms_mod.batched_full_step(
+                runner.states, b_imgs, b_meta, b_gt, cam=cam,
+                params=runner.params, is_pf=is_pf, kf_slot=0))
+
+    # Each stream against a single engine fed its frames with the same
+    # poseframe schedule.
+    singles = [Flame(W, H, cam=cam, params=params, device=dev)
+               for _ in range(S)]
+    srecs = [[] for _ in range(S)]
+    ssnaps = {}
+    for i in range(n):
+        frames, gts = ms_frames(seq_np, i, S, SE3)
+        for k, eng in enumerate(singles):
+            assert eng.update(*frames[k], is_poseframe=i % pf_every == 0,
+                              gt_depth=gts[k])
+            srecs[k].append(eng.flush_stats())
+        if i + 1 in (6, n):
+            ssnaps[i + 1] = [state_leaves(e.state) for e in singles]
+    bit_equal = {f"frame_{f}": {
+        f"stream_{k}": [name for j, name in enumerate(leaf_names)
+                        if torch.equal(snaps[f][j][k], ssnaps[f][k][j])]
+        for k in range(S)} for f in (6, n)}
+    summ = [truth_summary(r) for r in recs]
+    ssumm = [truth_summary(r) for r in srecs]
+    bands = []
+    for k in range(S):
+        a, b = summ[k], ssumm[k]
+        d = {"rmse_rel": abs(a["mean_rmse"] - b["mean_rmse"])
+             / b["mean_rmse"],
+             "recall": abs(a["mean_recall"] - b["mean_recall"]),
+             "coverage": abs(a["final_coverage"] - b["final_coverage"])}
+        assert d["rmse_rel"] <= 0.01 and d["recall"] <= 0.01 \
+            and d["coverage"] <= 0.01, (k, a, b, d)
+        bands.append(d)
+    stats_equal = [sum(r1 == r2 for r1, r2 in zip(recs[k], srecs[k]))
+                   for k in range(S)]
+    assert all(r["health"] == 1.0 for rs in recs for r in rs)
+    phase("multi_stream_correctness", streams=S, frames=n,
+          checked_frames=list(checked), kernel_equal_plain=True,
+          order_split_px=split, launches=launches, work=work,
+          no_host_sync=True, vmap_fallback="error",
+          per_stream=summ, single_engines=ssumm, band_diff=bands,
+          frames_with_equal_stats=stats_equal, bit_equal_leaves=bit_equal)
+
+    # (c) checkpoint at frame 30 and the getters -------------------------
+    with vmap_fallback_errors():
+        fresh = MultiStreamRunner(cam, S, params=params, device=dev)
+        fresh.load_checkpoint(ckpt_path)
+        for i in range(30, n):
+            assert fresh.update(*ms_frames(seq_np, i, S, SE3))
+    differ = [leaf_names[j] for j, (a, b) in
+              enumerate(zip(state_leaves(fresh.states), snaps[n]))
+              if not torch.equal(a, b)]
+    assert not differ, f"resumed runner != uninterrupted in {differ}"
+    meshes = runner.get_meshes()
+    maps = runner.get_idepth_maps()
+    assert maps.shape == (S, H, W), maps.shape
+    assert len(meshes) == S and all(len(m[2]) > 0 and np.isfinite(m[1]).all()
+                                    for m in meshes)
+    runner.shutdown()
+    fresh.shutdown()
+    phase("multi_stream_checkpoint", resumed_at=30, frames=n,
+          equal_leaves=len(leaf_names),
+          mesh_tris=[len(m[2]) for m in meshes],
+          idepth_maps_shape=list(maps.shape),
+          coverage=[float(np.isfinite(m).mean()) for m in maps])
+
+    # (b) throughput, S = 1, 2, 4, 8, deferred triangulation -------------
+    def timed_updates(r):
+        """Host ms of each update over the n frames, to its stats read
+        (one device-to-host copy: a sync)."""
+        t_upd = []
+        for i in range(n):
+            frames, _ = ms_frames(seq_np, i, r.S, SE3)
+            t0 = time.perf_counter()
+            r.update(frames)
+            r.flush_stats()
+            t_upd.append((time.perf_counter() - t0) * 1e3)
+        return np.asarray(t_upd[5:])
+
+    rows = {}
+    for s_n in (1, 2, 4, 8):
+        # Synchronous triangulation first: its ordinary frames run with
+        # no Delaunay thread beside them (the dispatch cost alone).
+        r = MultiStreamRunner(cam, s_n, params=params, device=dev)
+        with vmap_fallback_errors():
+            sync_ms = timed_updates(r)
+        r.shutdown()
+        r = MultiStreamRunner(cam, s_n, params=params, device=dev,
+                              deferred_triangulation=True)
+        with vmap_fallback_errors():
+            steady = timed_updates(r)
+            # Launches and card-busy ms of one update (profiler): frame
+            # 61 is a poseframe, 62 an ordinary frame.
+            prof = {}
+            for name in ("poseframe", "frame"):
+                frames, _ = ms_frames(seq_np, n - 1, s_n, SE3)
+                prof[name] = device_events(lambda: r.update(frames))
+            r.drain_topologies()
+        r.shutdown()
+        ordinary = [k - 5 for k in range(5, n) if k % pf_every]
+        rows[s_n] = {
+            "ms_per_update_p50": float(np.percentile(steady, 50)),
+            "ms_per_update_p95": float(np.percentile(steady, 95)),
+            "aggregate_frames_per_s": float(s_n * len(steady)
+                                            / (steady.sum() / 1e3)),
+            "launches_per_update": prof["frame"][0],
+            "busy_ms_per_update": prof["frame"][1],
+            "launches_per_poseframe": prof["poseframe"][0],
+            "busy_ms_per_poseframe": prof["poseframe"][1],
+            "delaunay_round_host_ms_p50": float(
+                np.percentile(r.tri_round_s, 50) * 1e3),
+            "topo_dropped": r.topo_dropped,
+            "sync_ms_per_update_p50": float(np.percentile(sync_ms, 50)),
+            "sync_ms_per_ordinary_frame_p50": float(np.percentile(
+                sync_ms[ordinary], 50)),
+            "deferred_ms_per_ordinary_frame_p50": float(np.percentile(
+                steady[ordinary], 50))}
+        phase("multi_stream_throughput", streams=s_n, **rows[s_n],
+              phase4_ms_per_frame_p50=float(np.percentile(ms4, 50)))
+    ratio = rows[8]["launches_per_update"] / rows[1]["launches_per_update"]
+    assert ratio <= 1.25, f"launches grow with streams: {ratio}"
+
+    # The batched kernel on the runner's inputs (frame 57) at S = 1, 4, 8.
+    times = {}
+    for s_n in (1, 4, 8):
+        args = [torch.cat([a] * 2)[:s_n] for a in kernel_args]
+        kern = rc.rasterize_tri_ids_v4_batched
+        assert torch.equal(kern(*args, height=H, width=W),
+                           rc.rasterize_tri_ids_v4_batched_ref(
+                               *args, height=H, width=W))
+        bare = bare_batched_launch(rc, args, H, W)
+        pairs = sum(bbox_pairs(torch, args[0][k], args[1][k], args[2][k],
+                               H, W) for k in range(s_n))
+        b_ops = pairs * INSTR_PER_TEST["v4"] / F32_INSTR_RATE * 1e3
+        b_bytes = (bare.slab_bytes + s_n * H * W * 4) / PEAK_BYTES * 1e3
+        times[s_n] = dict(
+            ms=cuda_median_ms(lambda: kern(*args, height=H, width=W)),
+            kernel_only_ms=cuda_median_ms(bare),
+            kernel_device_ms=device_ms(bare),
+            plain_ms=cuda_median_ms(
+                lambda: rc.rasterize_tri_ids_v4_batched_ref(
+                    *args, height=H, width=W), reps=5, warmup=1),
+            bound_ms=max(b_ops, b_bytes),
+            bound_by="operations" if b_ops >= b_bytes else "bytes",
+            bbox_pairs=pairs)
+    phase("multi_stream_kernel", **{f"S{k}": v for k, v in times.items()})
+    return dict(times[S], launches=launches["v4_batched"], max_err=max_err)
+
+
+def viz_path(engine, seq, params, cam, dev, out):
+    """Phase 11: the viz modules on phase 4's final engine, and the live
+    viewer against a FlameServer on the card."""
+    import re
+    import socket
+    import urllib.request
+    import numpy as np
+    import torch
+    from flame_ros_torch.frontends.serve import FlameServer, send_msg
+    from flame_ros_torch.viz import debug_images as dbg
+    from flame_ros_torch.viz.export import write_ply_mesh
+    from flame_ros_torch.viz.html_viewer import export_html_viewer
+    from flame_ros_torch.viz.live_viewer import LiveMeshViewer
+    flags = ("wireframe", "features", "idepthmap", "matches", "detections",
+             "normals")
+    gray = torch.clamp(seq.images[-1], 0, 255).to(torch.uint8).cpu().numpy()
+    base = dict.fromkeys(flags, False)
+
+    def render(**on):
+        engine.params = dataclasses.replace(
+            engine.params, debug=dataclasses.replace(
+                engine.params.debug, profile_stages=False,
+                text_overlay=False, flip_images=False, **{**base, **on}))
+        return dbg.render_debug_images(engine, gray)
+
+    products = render(**dict.fromkeys(flags, True))
+    assert sorted(products) == sorted(flags), sorted(products)
+    for k, im in products.items():
+        assert im.shape == (cam.height, cam.width, 3) and \
+            im.dtype == np.uint8, (k, im.shape, im.dtype)
+    finite = np.isfinite(engine.get_inverse_depth_map())
+    colored = (products["idepthmap"] != np.stack([gray] * 3, -1)).any(-1)
+    assert np.array_equal(colored, finite), int((colored != finite).sum())
+    host_ms = {}
+    for k in flags:
+        t0 = time.perf_counter()
+        render(**{k: True})
+        host_ms[k] = (time.perf_counter() - t0) * 1e3
+
+    # The final mesh as PLY and as the HTML viewer, read back.
+    uv, x, normals, tris, keep, _ = engine.get_inverse_depth_mesh()
+    ply = os.path.join(out, "final_mesh.ply")
+    write_ply_mesh(ply, uv, x, normals, tris, keep, cam.K, width=cam.width,
+                   height=cam.height)
+    with open(ply, "rb") as f:
+        head = f.read(1024).split(b"end_header")[0].decode()
+    n_v = int(re.search(r"element vertex (\d+)", head).group(1))
+    n_f = int(re.search(r"element face (\d+)", head).group(1))
+    html = os.path.join(out, "final_mesh.html")
+    export_html_viewer(html, uv, x, normals, tris, keep, cam.K, gray=gray)
+    with open(html) as f:
+        page = f.read()
+    data = json.loads(page.split("const DATA = ", 1)[1].split(
+        ";\nconst cv", 1)[0])
+    assert n_v == len(uv) == len(data["xyz"]) // 3, (n_v, len(uv))
+    assert n_f == int(keep.sum()) == len(data["tris"]) // 3 > 0, n_f
+    assert data["texture_png"], "no texture (cv2.imencode)"
+
+    # A FlameServer on the card streams 10 frames to a LiveMeshViewer.
+    srv = FlameServer(cam, params, port=0, device=dev)
+    srv.start()
+    viewer = LiveMeshViewer(server_port=srv.port, http_port=0,
+                            period_s=0.1).start()
+    url = f"http://127.0.0.1:{viewer.http_port}"
+    imgs = torch.clamp(seq.images[:10], 0, 255).to(torch.uint8).cpu().numpy()
+    q, t = seq.poses.q.cpu().numpy(), seq.poses.t.cpu().numpy()
+    c = socket.create_connection(("127.0.0.1", srv.port), timeout=60)
+
+    def poll_tris():
+        """Triangles of the viewer's mesh JSON, None before the first."""
+        with urllib.request.urlopen(url + "/mesh.json", timeout=10) as r:
+            if r.status != 200:
+                return None
+            d = json.loads(r.read())
+        assert len(d["xyz"]) > 0, "empty mesh JSON"
+        return len(d["tris"]) // 3
+
+    seen = []
+    try:
+        with urllib.request.urlopen(url + "/", timeout=10) as r:
+            assert r.status == 200 and b"mesh.json" in r.read()
+        for i in range(10):
+            send_msg(c, {"type": "frame", "img_id": i,
+                         "time": float(seq.timestamps[i]),
+                         "quat": q[i].tolist(), "trans": t[i].tolist(),
+                         "shape": list(imgs[i].shape), "dtype": "uint8"},
+                     imgs[i].tobytes())
+            seen.append(poll_tris())
+            time.sleep(0.1)
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            seen.append(poll_tris())
+            if seen[-1]:
+                break
+            time.sleep(0.2)
+    finally:
+        try:
+            send_msg(c, {"type": "stop"})
+            c.close()
+        except OSError:
+            pass
+        viewer.stop()
+        srv.stop()
+    got = [s for s in seen if s is not None]
+    assert got and got[-1] > 0 and got[-1] > got[0], seen
+    phase("viz", products=sorted(products), host_ms_per_product=host_ms,
+          idepthmap_colored_px=int(colored.sum()),
+          ply_vertices=n_v, ply_faces=n_f, html_vertices=n_v,
+          html_faces=n_f, live_viewer_tris=got)
+
+
 def main():
     try:
         import torch
@@ -1642,6 +2116,12 @@ def main():
     # 9. tracking mode with windowed bundle adjustment ------------------
     tracking_ba_path(seq, steady, ms8["clean"], params, VGA, dev, OUT)
 
+    # 10. many streams ---------------------------------------------------
+    batched = multi_stream_path(seq, steady, params, VGA, dev, OUT)
+
+    # 11. viz ------------------------------------------------------------
+    viz_path(engine, seq, params, VGA, dev, OUT)
+
     # Result lines -----------------------------------------------------
     replaces = {"v4": "flame_ros_tpu/ops/raster_pallas.py:458",
                 "v2": "flame_ros_tpu/ops/raster_pallas.py:128",
@@ -1656,6 +2136,14 @@ def main():
             "max_abs_err": max_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    kernels.append({
+        "name": "raster_v4_batched", "route": "cuda",
+        "source": "flame_ros_torch/csrc/raster.cu",
+        "replaces": "flame_ros_tpu/ops/raster_pallas.py:458 (under jax.vmap)",
+        "launches": batched["launches"], "max_abs_err": batched["max_err"],
+        "ms": batched["ms"], "plain_ms": batched["plain_ms"],
+        "bound_ms": batched["bound_ms"], "bound_by": batched["bound_by"],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -80,8 +80,15 @@
 // x*a + (y*b + c) for v4, (x*a + y*b) + c for v2 and v3. Hoisting the
 // per-row term y*b + c (v4) or y*b (v2, v3) changes no rounding.
 //
-// Each kernel adds 1 to work[k] (k = 0 for v4, 1 for v2, 2 for v3) once
-// per launch, so a run can show which kernel did the raster work.
+// raster_v4_batched runs v4 over S images in one launch: the TPU kernel
+// under jax.vmap (flame_ros_tpu/parallel/multi_stream.py vmaps the engine
+// step over a stream axis, so its pallas_call becomes one batched call).
+// A grid of (n_tiles, S); blockIdx.y picks one image's slab, ranges and
+// output, and its blocks run v4's tile routine unchanged.
+//
+// Each kernel adds 1 to work[k] (k = 0 for v4, 1 for v2, 2 for v3, 3 for
+// batched v4) once per launch, so a run can show which kernel did the
+// raster work; batched v4 also adds the number of images to work[4].
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -405,22 +412,56 @@ struct V3Src {
   }
 };
 
-// C: [11, T] row-major, columns in sorted order. lo_pos, hi_pos:
-// [n_tiles]. counts: [2] = (n_short, n_live). out: [H * W].
-__global__ void raster_v4_kernel(const float* __restrict__ C, int T,
-                                 const int* __restrict__ lo_pos,
-                                 const int* __restrict__ hi_pos,
-                                 const int* __restrict__ counts,
-                                 int* __restrict__ out, int width,
-                                 int row_tile, int* __restrict__ work) {
+// One v4 tile (blockIdx.x) of one image. C: [11, T] row-major, columns
+// in sorted order. lo_pos, hi_pos: [n_tiles]. counts: [2] = (n_short,
+// n_live). out: [H * W].
+__device__ __forceinline__ void v4_tile(const float* __restrict__ C, int T,
+                                        const int* __restrict__ lo_pos,
+                                        const int* __restrict__ hi_pos,
+                                        const int* __restrict__ counts,
+                                        int* __restrict__ out, int width,
+                                        int row_tile) {
   const int tile = blockIdx.x;
-  if (tile == 0 && threadIdx.x == 0) atomicAdd(work + 0, 1);
   const int lo = lo_pos[tile];
   const int n_s = max(hi_pos[tile] - lo, 0);
   const int n_short = counts[0];
   const int n_long = max(counts[1] - n_short, 0);
   raster_tile<false, true>(C, T, n_s + n_long, V4Src{lo, n_s, n_short}, out,
                            width, row_tile);
+}
+
+__global__ void raster_v4_kernel(const float* __restrict__ C, int T,
+                                 const int* __restrict__ lo_pos,
+                                 const int* __restrict__ hi_pos,
+                                 const int* __restrict__ counts,
+                                 int* __restrict__ out, int width,
+                                 int row_tile, int* __restrict__ work) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(work + 0, 1);
+  v4_tile(C, T, lo_pos, hi_pos, counts, out, width, row_tile);
+}
+
+// v4 over a batch of S images in one launch (the TPU kernel under
+// jax.vmap): a grid of (n_tiles, S), blockIdx.y selecting one image's
+// slab C [S, 11, T], lo_pos / hi_pos [S, n_tiles], counts [S, 2] and
+// output out [S, H * W]. Each image's blocks do exactly what
+// raster_v4_kernel's do for it alone. work[3] counts launches, work[4]
+// the images they covered.
+__global__ void raster_v4_batched_kernel(const float* __restrict__ C, int T,
+                                         const int* __restrict__ lo_pos,
+                                         const int* __restrict__ hi_pos,
+                                         const int* __restrict__ counts,
+                                         int* __restrict__ out, int height,
+                                         int width, int row_tile,
+                                         int* __restrict__ work) {
+  const int s = blockIdx.y;
+  const int n_tiles = gridDim.x;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    if (s == 0) atomicAdd(work + 3, 1);
+    atomicAdd(work + 4, 1);
+  }
+  v4_tile(C + (size_t)s * 11 * T, T, lo_pos + (size_t)s * n_tiles,
+          hi_pos + (size_t)s * n_tiles, counts + 2 * s,
+          out + (size_t)s * height * width, width, row_tile);
 }
 
 // C: [10, T] row-major (9 edge coefficients, validity) in original order.
@@ -478,6 +519,20 @@ int raster_v4_launch(const float* C, int T, const int* lo_pos,
   if (threads > 1024) return (int)cudaErrorInvalidConfiguration;
   raster_v4_kernel<<<height / row_tile, threads, 0, (cudaStream_t)stream>>>(
       C, T, lo_pos, hi_pos, counts, out, width, row_tile, work);
+  return (int)cudaGetLastError();
+}
+
+int raster_v4_batched_launch(const float* C, int S, int T,
+                             const int* lo_pos, const int* hi_pos,
+                             const int* counts, int* out, int height,
+                             int width, int row_tile, int* work,
+                             void* stream) {
+  const int threads = tile_threads(row_tile, width);
+  if (threads > 1024 || S < 1 || S > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid(height / row_tile, S);
+  raster_v4_batched_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      C, T, lo_pos, hi_pos, counts, out, height, width, row_tile, work);
   return (int)cudaGetLastError();
 }
 

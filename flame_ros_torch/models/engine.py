@@ -149,6 +149,12 @@ def state_leaves(state: EngineState) -> list:
     return list(state.feat) + list(state[1:])
 
 
+def state_from_leaves(leaves) -> EngineState:
+    """The inverse of `state_leaves`."""
+    nf = len(ep_ops.FeatureFilterState._fields)
+    return EngineState(ep_ops.FeatureFilterState(*leaves[:nf]), *leaves[nf:])
+
+
 def state_to_numpy(state: EngineState) -> dict:
     """Flat {name: numpy array} view of a state; feature-filter fields
     are keyed "feat.<field>"."""
@@ -209,19 +215,27 @@ def _project_graph_core(state: EngineState, cur_q, cur_t, cam: Pinhole):
 
 
 def _set_row(t, idx, val):
+    """t with row idx set to val (a tensor, or a Python scalar written by
+    a fill: an item assignment would copy it from the host)."""
     out = t.clone()
-    out[idx] = val
+    if isinstance(val, torch.Tensor):
+        out[idx] = val
+    else:
+        out[idx].fill_(val)
     return out
 
 
-def _track_step(state: EngineState, img_pyr, cur_q, cur_t, frame_id: int,
+def _track_step(state: EngineState, img_pyr, cur_q, cur_t, frame_id,
                 kf_slot: int, is_poseframe: bool, *, cam: Pinhole,
                 params: FlameParams, truth_idepth=None):
     """Epipolar update -> graph/feature projection -> on poseframes:
     keyframe ring insert (with re-anchor of the recycled slot's features),
     detection and free-slot allocation. With `truth_idepth` ([H, W]
     current-frame inverse depth, 0 where unknown) the filter posterior is
-    overridden by the truth. Returns (state, status, uv_match, counts_vec
+    overridden by the truth. `frame_id` is a Python int or a 0-d int32
+    tensor (one per stream under torch.func.vmap); `kf_slot` and
+    `is_poseframe` are Python values. Every write is out of place, so the
+    step runs under vmap. Returns (state, status, uv_match, counts_vec
     [7], (det_uv, det_take))."""
     eng = params.engine
     trk = params.features.tracking
@@ -359,10 +373,10 @@ def _track_step(state: EngineState, img_pyr, cur_q, cur_t, frame_id: int,
         slot = free_slots[torch.clamp(det_rank, 0, N - 1)]
         target = torch.where(take, slot, N)      # row N is a dummy
         vals = torch.stack([duv[:, 0], duv[:, 1], mu0, var0], -1)
-        got = torch.zeros((N + 1, 4), dtype=f32, device=dev)
-        got.index_copy_(0, target, vals)
-        hit = torch.zeros(N + 1, dtype=torch.bool, device=dev)
-        hit.index_fill_(0, target, True)
+        got = torch.zeros((N + 1, 4), dtype=f32,
+                          device=dev).index_copy(0, target, vals)
+        hit = torch.zeros(N + 1, dtype=torch.bool,
+                          device=dev).index_fill(0, target, True)
         got, hit = got[:N], hit[:N]
         feat = feat._replace(
             uv_ref=torch.where(hit[:, None], got[:, :2], feat.uv_ref),
@@ -439,9 +453,10 @@ def _smooth_pd_setup(state: EngineState, *, params: FlameParams):
 
 def _smooth_step(state: EngineState, img_pyr, cur_q, cur_t, track_counts,
                  gt_depth, *, cam: Pinhole, params: FlameParams,
-                 has_gt: bool = False):
-    """NLTGV2 sweeps, then `_smooth_finish`. Returns (state, idepth map or
-    an empty tensor, stats_vec)."""
+                 has_gt: bool = False, dense_products: bool = False):
+    """NLTGV2 sweeps, then `_smooth_finish`. Returns (state, the dense
+    idepth map when has_gt or dense_products, else an empty tensor,
+    stats_vec)."""
     reg = params.regularization
     nl = reg.nltgv2
     eng = params.engine
@@ -465,13 +480,14 @@ def _smooth_step(state: EngineState, img_pyr, cur_q, cur_t, track_counts,
         vtx_x = torch.where(state.vtx_in_graph, state.vtx_z, vtx_x)
     return _smooth_finish(state, img_pyr, cur_q, cur_t, track_counts,
                           gt_depth, vtx_x, vtx_w, edge_q, costs, tri_fresh,
-                          edge_fresh, cam=cam, params=params, has_gt=has_gt)
+                          edge_fresh, cam=cam, params=params, has_gt=has_gt,
+                          dense_products=dense_products)
 
 
 def _smooth_finish(state: EngineState, img_pyr, cur_q, cur_t, track_counts,
                    gt_depth, vtx_x, vtx_w, edge_q, costs, tri_fresh,
                    edge_fresh, *, cam: Pinhole, params: FlameParams,
-                   has_gt: bool):
+                   has_gt: bool, dense_products: bool = False):
     """Graph filters, sticky-obstacle guard, rasterization, photometric
     telemetry, health word, packed stats."""
     reg = params.regularization
@@ -498,8 +514,8 @@ def _smooth_finish(state: EngineState, img_pyr, cur_q, cur_t, track_counts,
         width=cam.width, use_kernel=bool(eng.use_pallas_raster),
         kernel=eng.pallas_raster_kernel)
     cov = torch.mean((idmap >= 0).to(f32))
-    idepth_map = (raster_ops.idepth_from_ids(idmap, planes) if has_gt
-                  else None)
+    idepth_map = (raster_ops.idepth_from_ids(idmap, planes)
+                  if has_gt or dense_products else None)
 
     # --- photometric error vs the newest keyframe, on a strided grid ---
     ps = max(int(eng.photo_stride), 1)
@@ -585,7 +601,7 @@ def _smooth_finish(state: EngineState, img_pyr, cur_q, cur_t, track_counts,
     new_state = state._replace(vtx_x=vtx_x, vtx_w=vtx_w, edge_q=edge_q,
                                last_idmap=idmap, last_planes=planes,
                                cell_err=cell_err)
-    idepth_out = (idepth_map if has_gt
+    idepth_out = (idepth_map if has_gt or dense_products
                   else torch.zeros((0,), dtype=f32, device=dev))
     return new_state, idepth_out, stats_vec
 
@@ -657,8 +673,8 @@ def _window_step(state: EngineState, imgs, meta, meta_host, gt, *,
     """B frames of one window, in order: build_pyramid -> _track_step ->
     _smooth_step for each. Only frame 0 may take the poseframe branch.
     Returns (state, statuses [B, N], stats [B, n_stats], the last frame's
-    detections (uv, taken))."""
-    statuses, stats, dets = [], [], None
+    detections (uv, taken), the last frame's epipolar matches [N, 2])."""
+    statuses, stats, dets, uv_match = [], [], None, None
     for b in range(imgs.shape[0]):
         is_pf = first_is_pf and b == 0
         # f32 round trip of the frame id, as the JAX package's window
@@ -669,7 +685,7 @@ def _window_step(state: EngineState, imgs, meta, meta_host, gt, *,
         with record_function("flame.pyramid"):
             img_pyr = build_pyramid(imgs[b].to(torch.float32), NUM_LEVELS)
         with record_function("flame.track"):
-            state, status, _, counts_vec, dets = _track_step(
+            state, status, uv_match, counts_vec, dets = _track_step(
                 state, img_pyr, cur_q, cur_t, frame_id, kf_slot, is_pf,
                 cam=cam, params=params)
         with record_function("flame.smooth"):
@@ -679,11 +695,11 @@ def _window_step(state: EngineState, imgs, meta, meta_host, gt, *,
                 has_gt=gt is not None)
         statuses.append(status)
         stats.append(stats_vec)
-    return state, torch.stack(statuses), torch.stack(stats), dets
+    return state, torch.stack(statuses), torch.stack(stats), dets, uv_match
 
 
 def _unpack_topology(buf, *, T: int, E: int, N: int, D: int):
-    """Split a packed int32 topology buffer (`Flame._build_topology_host`)
+    """Split a packed int32 topology buffer (`build_topology_host`)
     into its arrays on the buffer's device. The last element is the
     frame-id watermark of the vertex state it was built from."""
     o = 0
@@ -700,6 +716,43 @@ def _unpack_topology(buf, *, T: int, E: int, N: int, D: int):
     inc_s = buf[o:o + N * D].reshape(N, D).to(torch.float32)
     o += N * D
     return tris, tv, edges, ev, inc_e, inc_s, buf[o]
+
+
+def build_topology_host(params: FlameParams, uv: np.ndarray,
+                        eligible: np.ndarray,
+                        watermark: int = NO_WATERMARK) -> np.ndarray:
+    """Delaunay + incidence lists on the host, packed into one int32
+    buffer (one upload; `_unpack_topology` splits it on the device).
+    `watermark`: max frame id of the vertex state this triangulation was
+    built from; it is the buffer's last element."""
+    idx = np.flatnonzero(eligible)
+    eng = params.engine
+    N, E, T = eng.max_features, eng.max_edges, eng.max_triangles
+    tris_pad = np.zeros((T, 3), np.int32)
+    tv = np.zeros(T, bool)
+    edges_pad = np.zeros((E, 2), np.int32)
+    ev = np.zeros(E, bool)
+    if len(idx) >= 3:
+        tris_local = triangulate(uv[idx])
+        edges_local = edges_from_triangles(tris_local)
+        tris_g = idx[tris_local][:T]
+        edges_g = idx[edges_local][:E]
+        # Sort triangles by ymin so raster block culling is effective.
+        if len(tris_g):
+            ymin = uv[tris_g, 1].min(axis=1)
+            tris_g = tris_g[np.argsort(ymin, kind="stable")]
+        tris_pad[:len(tris_g)] = tris_g
+        tv[:len(tris_g)] = True
+        edges_pad[:len(edges_g)] = edges_g
+        ev[:len(edges_g)] = True
+    inc_e, inc_s, keep = reg_ops.build_incidence(
+        edges_pad, ev, N, eng.max_vertex_degree)
+    ev &= keep
+    return np.concatenate([
+        tris_pad.ravel(), tv.astype(np.int32), edges_pad.ravel(),
+        ev.astype(np.int32), inc_e.ravel(),
+        inc_s.astype(np.int32).ravel(),
+        np.asarray([watermark], np.int32)])
 
 
 def _host(x) -> np.ndarray:
@@ -786,6 +839,9 @@ class Flame:
                      "tri_host_s": 0.0, "tri_sched_s": 0.0,
                      "dispatch_s": 0.0, "pack_s": 0.0, "n_uploads": 0}
         self._dev_status = None
+        # The last frame's epipolar matches [N, 2] (a device reference,
+        # read by viz/debug_images.py's "matches" product).
+        self._dev_uv_match = None
         self._dev_stats = None
         self._dev_stats_window = None
         self._dev_detections = None
@@ -908,7 +964,7 @@ class Flame:
             self._kf_slot = (self._kf_slot + 1) % \
                 self.params.engine.max_keyframes
         with s.scope("update_idepths"), record_function("flame.track"):
-            self.state, status, _, counts_vec, dets = _track_step(
+            self.state, status, uv_match, counts_vec, dets = _track_step(
                 self.state, img_pyr, cur_q, cur_t, int(img_id), kf_slot,
                 is_pf, cam=self.cam, params=self.params,
                 truth_idepth=(None if truth is None
@@ -924,6 +980,7 @@ class Flame:
                 None if gt is None else gt[0].to(self.device),
                 cam=self.cam, params=self.params, has_gt=gt is not None)
         self._dev_status = status
+        self._dev_uv_match = uv_match
         self._dev_stats = stats_vec
         self._dev_stats_window = stats_vec[None]
         self._host_status = None
@@ -1153,7 +1210,7 @@ class Flame:
         split = (win.any_pf and win.first_is_pf and B > 1
                  and self.deferred_triangulation)
         if split:
-            self.state, _, stats1, _ = _window_step(
+            self.state, _, stats1, _, _ = _window_step(
                 self.state, win.imgs[:1], win.meta[:1], win.meta_host[:1],
                 None if win.gt is None else win.gt[:1], first_is_pf=True,
                 **kw)
@@ -1163,13 +1220,13 @@ class Flame:
                     record_function("flame.triangulate"):
                 self._schedule_triangulation()
             self.perf["tri_sched_s"] += time_mod.perf_counter() - ts
-            self.state, statuses, stats2, dets = _window_step(
+            self.state, statuses, stats2, dets, uv_match = _window_step(
                 self.state, win.imgs[1:], win.meta[1:], win.meta_host[1:],
                 None if win.gt is None else win.gt[1:], first_is_pf=False,
                 **kw)
             stats = torch.cat([stats1, stats2])
         else:
-            self.state, statuses, stats, dets = _window_step(
+            self.state, statuses, stats, dets, uv_match = _window_step(
                 self.state, win.imgs, win.meta, win.meta_host, win.gt,
                 first_is_pf=win.first_is_pf, **kw)
         dt = time_mod.perf_counter() - t0
@@ -1179,6 +1236,7 @@ class Flame:
         self._dev_stats = stats[-1]
         self._dev_stats_window = stats
         self._dev_detections = dets
+        self._dev_uv_match = uv_match
         self._host_status = None
         self._frame_count += B
         if win.any_pf and not split:
@@ -1319,38 +1377,7 @@ class Flame:
 
     def _build_topology_host(self, uv: np.ndarray, eligible: np.ndarray,
                              watermark: int = NO_WATERMARK) -> np.ndarray:
-        """Delaunay + incidence lists on the host, packed into one int32
-        buffer (one upload; `_unpack_topology` splits it on the device).
-        `watermark`: max frame id of the vertex state this triangulation
-        was built from; it is the buffer's last element."""
-        idx = np.flatnonzero(eligible)
-        eng = self.params.engine
-        N, E, T = eng.max_features, eng.max_edges, eng.max_triangles
-        tris_pad = np.zeros((T, 3), np.int32)
-        tv = np.zeros(T, bool)
-        edges_pad = np.zeros((E, 2), np.int32)
-        ev = np.zeros(E, bool)
-        if len(idx) >= 3:
-            tris_local = triangulate(uv[idx])
-            edges_local = edges_from_triangles(tris_local)
-            tris_g = idx[tris_local][:T]
-            edges_g = idx[edges_local][:E]
-            # Sort triangles by ymin so raster block culling is effective.
-            if len(tris_g):
-                ymin = uv[tris_g, 1].min(axis=1)
-                tris_g = tris_g[np.argsort(ymin, kind="stable")]
-            tris_pad[:len(tris_g)] = tris_g
-            tv[:len(tris_g)] = True
-            edges_pad[:len(edges_g)] = edges_g
-            ev[:len(edges_g)] = True
-        inc_e, inc_s, keep = reg_ops.build_incidence(
-            edges_pad, ev, N, eng.max_vertex_degree)
-        ev &= keep
-        return np.concatenate([
-            tris_pad.ravel(), tv.astype(np.int32), edges_pad.ravel(),
-            ev.astype(np.int32), inc_e.ravel(),
-            inc_s.astype(np.int32).ravel(),
-            np.asarray([watermark], np.int32)])
+        return build_topology_host(self.params, uv, eligible, watermark)
 
     def _install_topology(self, buf, *, wm=None):
         """Swap a packed topology (`_build_topology_host`; a numpy array
@@ -1550,9 +1577,7 @@ class Flame:
                     f"{tuple(t.shape)} vs {tuple(old.shape)} — construct "
                     f"the engine with the same capacity params")
             leaves.append(t.to(self.device, old.dtype))
-        nf = len(ep_ops.FeatureFilterState._fields)
-        self.state = EngineState(
-            ep_ops.FeatureFilterState(*leaves[:nf]), *leaves[nf:])
+        self.state = state_from_leaves(leaves)
         host = data["__host__"]
         self._num_poseframes = int(host[0])
         self._frame_count = int(host[1])

@@ -70,6 +70,6 @@ def occupancy_from_features(feat_uv, feat_valid, height: int, width: int,
                      0, nCy - 1)
     C = nCy * nCx
     cell = torch.where(feat_valid, cy * nCx + cx, C).long()
-    occ = torch.zeros(C + 1, dtype=torch.bool, device=feat_uv.device)
-    occ.index_fill_(0, cell, True)
+    occ = torch.zeros(C + 1, dtype=torch.bool,
+                      device=feat_uv.device).index_fill(0, cell, True)
     return occ[:C].reshape(nCy, nCx)

@@ -72,9 +72,11 @@ def relative_poses(kf_q, kf_t, cur_q, cur_t):
 
 
 def unit_z_like(x):
-    """(0, 0, 1) in x's dtype and device, made without a host copy."""
+    """(0, 0, 1) in x's dtype and device, made without a host copy (a
+    fill, not an item assignment, which copies its value from the
+    host)."""
     z = torch.zeros(3, dtype=x.dtype, device=x.device)
-    z[2] = 1.0
+    z[2:].fill_(1.0)
     return z
 
 
@@ -181,7 +183,7 @@ def epipolar_update(
     # jnp.linspace(0, 1, S) as XLA computes it: i * (1/(S-1)), last = 1.
     step = float(np.float32(1.0) / np.float32(S - 1))
     alphas = torch.arange(S, dtype=f32, device=dev) * step
-    alphas[-1] = 1.0
+    alphas[-1:].fill_(1.0)          # a fill: no copy from the host
     xis = xi_lo[:, None] + (xi_hi - xi_lo)[:, None] * alphas[None, :]
 
     # --- reference patch ----------------------------------------------

@@ -23,19 +23,18 @@ _ZERO = torch.tensor(0.0)
 
 
 def build_pyramid(img, num_levels: int = 3):
-    """img [H, W] -> [L, H, W] padded pyramid (2x2 mean pooling)."""
+    """img [H, W] -> [L, H, W] padded pyramid (2x2 mean pooling). Built
+    out of place, so that it also runs under torch.func.vmap."""
     H, W = img.shape
     if H % (1 << (num_levels - 1)) or W % (1 << (num_levels - 1)):
         raise ValueError(f"image {H}x{W} not divisible by "
                          f"2^{num_levels - 1}")
-    out = torch.zeros((num_levels, H * W), dtype=img.dtype,
-                      device=img.device)
-    out[0] = img.reshape(-1)
+    levels = [img.reshape(-1)]
     cur = img
-    for lvl in range(1, num_levels):
+    for _ in range(1, num_levels):
         cur = F.avg_pool2d(cur[None, None], 2)[0, 0]
-        out[lvl, :cur.numel()] = cur.reshape(-1)
-    return out.reshape(num_levels, H, W)
+        levels.append(F.pad(cur.reshape(-1), (0, H * W - cur.numel())))
+    return torch.stack(levels).reshape(num_levels, H, W)
 
 
 def level_view(pyr, lvl: int):

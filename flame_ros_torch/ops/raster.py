@@ -11,6 +11,13 @@ rasterization followed by one affine evaluation. Invalid pixels are NaN
 `rasterize_tri_ids` is the plain formulation (the CPU path and the
 oracle). `rasterize_ids(..., use_kernel=True)` dispatches to the
 hand-written kernels of `ops/raster_cuda.py`.
+
+The id buffer is one custom operator, `flame_torch::raster_ids`, so that
+the engine step can run under `torch.func.vmap` over a stream axis (the
+multi-stream runner, `parallel/multi_stream.py`). Its vmap rule runs the
+batched v4 kernel (one launch for every image) on CUDA tensors, and on CPU
+tensors the unbatched operator's own code once per image (the CPU oracle).
+An unbatched call runs the single-image code as before.
 """
 from __future__ import annotations
 
@@ -98,6 +105,60 @@ def rasterize_tri_ids(vtx_pos, tris, tri_valid, *, height: int, width: int,
     return out.reshape(height, width)
 
 
+def _id_buffer(vtx_pos, tris, tri_valid, height, width, use_kernel,
+               kernel):
+    """The single-image id buffer of `rasterize_ids`."""
+    if use_kernel and kernel == "v4":
+        return raster_cuda.rasterize_tri_ids_v4(
+            vtx_pos, tris, tri_valid, height=height, width=width)
+    if use_kernel:
+        return raster_cuda.rasterize_tri_ids_v2(
+            vtx_pos, tris, tri_valid, height=height, width=width)
+    return rasterize_tri_ids(vtx_pos, tris, tri_valid, height=height,
+                             width=width)
+
+
+@torch.library.custom_op("flame_torch::raster_ids", mutates_args=())
+def raster_ids_op(vtx_pos: torch.Tensor, tris: torch.Tensor,
+                  tri_valid: torch.Tensor, height: int, width: int,
+                  use_kernel: bool, kernel: str) -> torch.Tensor:
+    """Triangle-id buffer [H, W] int32 (`rasterize_ids`'s dispatch)."""
+    return _id_buffer(vtx_pos, tris, tri_valid, height, width, use_kernel,
+                      kernel)
+
+
+@raster_ids_op.register_fake
+def _(vtx_pos, tris, tri_valid, height, width, use_kernel, kernel):
+    return vtx_pos.new_empty((height, width), dtype=torch.int32)
+
+
+def _raster_ids_vmap(info, in_dims, vtx_pos, tris, tri_valid, height,
+                     width, use_kernel, kernel):
+    """The id buffers of a batch of images [S, H, W]: one launch of the
+    batched v4 kernel on the card; on the CPU the single-image code once
+    per image. No other kernel has a batched form, so another choice on
+    the card raises (never a loop of single launches)."""
+    S = info.batch_size
+    vtx_pos, tris, tri_valid = (
+        x.movedim(d, 0) if d is not None else x.expand(S, *x.shape)
+        for x, d in zip((vtx_pos, tris, tri_valid), in_dims[:3]))
+    if vtx_pos.device.type == "cpu":
+        out = torch.stack([_id_buffer(vtx_pos[s], tris[s], tri_valid[s],
+                                      height, width, use_kernel, kernel)
+                           for s in range(S)])
+    elif use_kernel and kernel == "v4":
+        out = raster_cuda.rasterize_tri_ids_v4_batched(
+            vtx_pos, tris, tri_valid, height=height, width=width)
+    else:
+        raise ValueError(
+            "a batched raster on the card needs the v4 kernel "
+            "(engine.use_pallas_raster=True, pallas_raster_kernel='v4')")
+    return out, 0
+
+
+torch.library.register_vmap("flame_torch::raster_ids", _raster_ids_vmap)
+
+
 def rasterize_ids(vtx_pos, vtx_x, tris, tri_valid, *, height: int,
                   width: int, use_kernel: bool = False,
                   kernel: str = "v2"):
@@ -108,17 +169,11 @@ def rasterize_ids(vtx_pos, vtx_x, tris, tri_valid, *, height: int,
     use_kernel=True runs the hand-written raster: "v4", any other name
     v2, as the JAX package's dispatch does (its v3 is reached only by
     direct calls): the CUDA kernels on CUDA tensors, their plain versions
-    on CPU tensors."""
+    on CPU tensors. Under torch.func.vmap the id buffer comes from the
+    operator's vmap rule (`_raster_ids_vmap`)."""
     planes, pvalid = triangle_planes(vtx_pos, vtx_x, tris, tri_valid)
-    if use_kernel and kernel == "v4":
-        idmap = raster_cuda.rasterize_tri_ids_v4(
-            vtx_pos, tris, pvalid, height=height, width=width)
-    elif use_kernel:
-        idmap = raster_cuda.rasterize_tri_ids_v2(
-            vtx_pos, tris, pvalid, height=height, width=width)
-    else:
-        idmap = rasterize_tri_ids(vtx_pos, tris, pvalid, height=height,
-                                  width=width)
+    idmap = raster_ids_op(vtx_pos, tris, pvalid, height, width,
+                          bool(use_kernel), kernel)
     return idmap, planes
 
 

@@ -19,7 +19,12 @@ Counterpart of `flame_ros_tpu/ops/raster_pallas.py`:
   fallback gives. No engine path reaches it, as in the JAX package
   (`pallas_raster_kernel="v3"` runs v2);
 - `rasterize_tri_ids_v2` replaces `rasterize_tri_ids_pallas`
-  (raster_pallas.py:27-147): per-tile contiguous triangle-block ranges.
+  (raster_pallas.py:27-147): per-tile contiguous triangle-block ranges;
+- `rasterize_tri_ids_v4_batched` replaces `rasterize_tri_ids_pallas_v4`
+  under `jax.vmap` (the multi-stream engine step vmaps it over a stream
+  axis, `flame_ros_tpu/parallel/multi_stream.py:193-210`): v4 for S
+  images, its setup batched on the card and one launch of a
+  (n_tiles, S) grid.
 
 The kernels are in `csrc/raster.cu` (its header note says what bounds
 them on the card and how the design answers it: all three stage their
@@ -35,7 +40,8 @@ range logic and edge-function evaluation order, so the id buffers agree
 bit for bit.
 
 Launch counts: each wrapper has a `launches` integer that counts its
-kernel launches, one per call. The kernels also count their launches on
+kernel launches, one per call (the batched wrapper also counts the images
+its launches covered, `images`). The kernels also count their launches on
 the device (`work_counters`), so a run shows which kernel did the raster
 work without reading the wrappers.
 """
@@ -117,6 +123,9 @@ def load(path: str):
     lib.raster_v3_launch.restype = ci
     lib.raster_v3_launch.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, ci,
                                      vp, vp]
+    lib.raster_v4_batched_launch.restype = ci
+    lib.raster_v4_batched_launch.argtypes = [vp, ci, ci, vp, vp, vp, vp, ci,
+                                             ci, ci, vp, vp]
     return lib
 
 
@@ -128,12 +137,12 @@ def _get_lib():
         return _lib
 
 
-WORK_SLOTS = ("v4", "v2", "v3")
+WORK_SLOTS = ("v4", "v2", "v3", "v4_batched", "v4_batched_images")
 
 
 def work_counters(device) -> torch.Tensor:
-    """Device int32 [3]: launches of (v4, v2, v3), counted by the
-    kernels."""
+    """Device int32 [5]: launches of (v4, v2, v3, batched v4) and the
+    images the batched v4 launches covered, counted by the kernels."""
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -147,6 +156,8 @@ def reset_counters() -> None:
     rasterize_tri_ids_v4.launches = 0
     rasterize_tri_ids_v3.launches = 0
     rasterize_tri_ids_v2.launches = 0
+    rasterize_tri_ids_v4_batched.launches = 0
+    rasterize_tri_ids_v4_batched.images = 0
     for w in _work.values():
         w.zero_()
 
@@ -156,10 +167,11 @@ def reset_counters() -> None:
 # ---------------------------------------------------------------------------
 
 def edge_coeffs(p0, p1):
-    """[3, T] (a, b, c) of E(x, y) = a x + b y + c for edge p0 -> p1."""
-    dy = p1[:, 1] - p0[:, 1]
-    dx = p1[:, 0] - p0[:, 0]
-    return torch.stack([-dy, dx, dy * p0[:, 0] - dx * p0[:, 1]], 0)
+    """[..., 3, T] (a, b, c) of E(x, y) = a x + b y + c for the edges
+    p0 -> p1 [..., T, 2]."""
+    dy = p1[..., 1] - p0[..., 1]
+    dx = p1[..., 0] - p0[..., 0]
+    return torch.stack([-dy, dx, dy * p0[..., 0] - dx * p0[..., 1]], -2)
 
 
 def _corners(vtx_pos, tris):
@@ -189,63 +201,68 @@ def _check(vtx_pos, tris, tri_valid, height, width, row_tile):
         raise ValueError(f"width {width} too small")
 
 
-def _class_sort(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
-                long_thresh: float):
-    """The device sort shared by v4 and v3 (raster_pallas.py:241-249,
-    :407-415): triangles ordered by key = class * 1e7 + clip(ymin), class
-    0 for a y-extent <= long_thresh, 1 for a longer one, 2 for an
-    invalid one; f32 keys, a stable sort (jnp.argsort is stable), and
-    left-side searchsorted as jnp.searchsorted.
+def v4_setup_batched(vtx_pos, tris, tri_valid, *, height: int,
+                     row_tile: int, long_thresh: float):
+    """The v4 wrapper's device-side preparation (raster_pallas.py:397-438,
+    without the budgets) for S images at once, vtx_pos [S, N, 2], tris
+    [S, T, 3], tri_valid [S, T], with no host sync. It is the device sort
+    that v4 and v3 share (raster_pallas.py:241-249, :407-415): triangles
+    ordered by key = class * 1e7 + clip(ymin), class 0 for a y-extent <=
+    long_thresh, 1 for a longer one, 2 for an invalid one; f32 keys, a
+    stable sort (jnp.argsort is stable), and left-side searchsorted as
+    jnp.searchsorted, each along an image's own row.
 
-    Returns (C [11, T] sorted slab = 9 edge coefficients, validity and
-    original id as f32; n_short [] int32, n_live [] int32, lo_pos
-    [n_tiles] int32, hi_pos [n_tiles] int32): the sorted positions of the
-    short triangles that may overlap each tile of `row_tile` rows are
-    [lo_pos, hi_pos), those of the long ones [n_short, n_live)."""
+    Returns (C [S, 11, T] sorted slabs = 9 edge coefficients, validity and
+    original id as f32; lo_pos [S, n_tiles] int32, hi_pos [S, n_tiles]
+    int32, counts [S, 2] int32 = (n_short, n_live)): the sorted positions
+    of the short triangles that may overlap each tile of `row_tile` rows
+    are [lo_pos, hi_pos), those of the long ones [n_short, n_live)."""
     dev = vtx_pos.device
-    a, b, c = _corners(vtx_pos, tris)
-    ys = torch.stack([a[:, 1], b[:, 1], c[:, 1]], -1)
+    S, T = tris.shape[:2]
+    n_tiles = height // row_tile
+    t = tris.long()
+    img = torch.arange(S, device=dev)[:, None]
+    a, b, c = (vtx_pos[img, t[..., k]] for k in range(3))   # [S, T, 2]
+    ys = torch.stack([a[..., 1], b[..., 1], c[..., 1]], -1)
     ymin = ys.min(-1).values
     ymax = ys.max(-1).values
     extent = ymax - ymin
     klass = torch.where(tri_valid,
                         torch.where(extent <= long_thresh, 0.0, 1.0), 2.0)
     key = klass * OFF + torch.clamp(ymin, 0.0, OFF - 1.0)
-    perm = torch.argsort(key, stable=True)
-    key_s = key[perm]
+    perm = torch.argsort(key, dim=-1, stable=True)
+    key_s = torch.gather(key, 1, perm)
     # OFF - 0.5 and 2*OFF - 0.5 in f32 (they round to 1e7 and 2e7).
     thr = torch.full((2,), OFF - 0.5, dtype=torch.float32, device=dev)
-    thr[1] = 2 * OFF - 0.5
-    n_short, n_live = torch.searchsorted(key_s, thr).to(torch.int32)
-    n_tiles = height // row_tile
+    thr[1:].fill_(2 * OFF - 0.5)    # a fill: no copy from the host
+    counts = torch.searchsorted(
+        key_s, thr.expand(S, 2).contiguous()).to(torch.int32)
     tile_y0 = torch.arange(n_tiles, dtype=torch.float32, device=dev) \
         * row_tile
     lo_pos = torch.searchsorted(
-        key_s, torch.clamp(tile_y0 - long_thresh, min=0.0)).to(torch.int32)
+        key_s, torch.clamp(tile_y0 - long_thresh, min=0.0).expand(
+            S, n_tiles).contiguous()).to(torch.int32)
     hi_pos = torch.minimum(
-        torch.searchsorted(key_s, tile_y0 + row_tile).to(torch.int32),
-        n_short)
+        torch.searchsorted(key_s, (tile_y0 + row_tile).expand(
+            S, n_tiles).contiguous()).to(torch.int32), counts[:, :1])
     # Columns in sorted order; the last row holds each column's original
     # id (the permutation itself).
-    C = torch.cat([
-        torch.cat([edge_coeffs(a, b), edge_coeffs(b, c), edge_coeffs(c, a),
-                   tri_valid.to(torch.float32)[None, :]], 0)[:, perm],
-        perm.to(torch.float32)[None, :]], 0).contiguous()
-    return C, n_short, n_live, lo_pos, hi_pos
+    coef = torch.cat([edge_coeffs(a, b), edge_coeffs(b, c),
+                      edge_coeffs(c, a),
+                      tri_valid.to(torch.float32)[:, None, :]], 1)
+    C = torch.cat([torch.gather(coef, 2, perm[:, None, :].expand(S, 10, T)),
+                   perm.to(torch.float32)[:, None, :]], 1).contiguous()
+    return C, lo_pos, hi_pos.contiguous(), counts
 
 
 def v4_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
              long_thresh: float):
-    """The v4 wrapper's device-side preparation (raster_pallas.py:397-438,
-    without the budgets).
-
-    Returns (C [11, T] sorted slab, lo_pos [n_tiles] int32, hi_pos
-    [n_tiles] int32, counts [2] int32 = (n_short, n_live))."""
-    C, n_short, n_live, lo_pos, hi_pos = _class_sort(
-        vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
-        long_thresh=long_thresh)
-    counts = torch.stack([n_short, n_live])
-    return C, lo_pos, hi_pos, counts
+    """`v4_setup_batched` of one image: (C [11, T] sorted slab, lo_pos
+    [n_tiles] int32, hi_pos [n_tiles] int32, counts [2] int32 =
+    (n_short, n_live))."""
+    return tuple(x[0] for x in v4_setup_batched(
+        vtx_pos[None], tris[None], tri_valid[None], height=height,
+        row_tile=row_tile, long_thresh=long_thresh))
 
 
 def v3_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
@@ -262,9 +279,10 @@ def v3_setup(vtx_pos, tris, tri_valid, *, height: int, row_tile: int,
     B = min(tri_block, T)
     if T % B:
         B = T
-    C, n_short, n_live, lo_pos, hi_pos = _class_sort(
+    C, lo_pos, hi_pos, counts = v4_setup(
         vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
         long_thresh=long_thresh)
+    n_short, n_live = counts
     lo_blk = torch.div(lo_pos, B, rounding_mode="floor")
     nblk_s = torch.clamp(torch.div(hi_pos + B - 1, B, rounding_mode="floor")
                          - lo_blk, min=0).to(torch.int32)
@@ -464,9 +482,31 @@ def rasterize_tri_ids_v4_ref(vtx_pos, tris, tri_valid, *, height: int,
                     height=height, width=width, row_tile=row_tile)
 
 
+def rasterize_tri_ids_v4_batched_ref(vtx_pos, tris, tri_valid, *,
+                                     height: int, width: int,
+                                     row_tile: int = 2,
+                                     long_thresh: float = 48.0):
+    """Plain PyTorch version of the batched v4 kernel: the plain v4
+    version of each image in turn; [S, H, W] int32."""
+    _check_batched(vtx_pos, tris, tri_valid)
+    return torch.stack([rasterize_tri_ids_v4_ref(
+        vtx_pos[s], tris[s], tri_valid[s], height=height, width=width,
+        row_tile=row_tile, long_thresh=long_thresh)
+        for s in range(tris.shape[0])])
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
+
+def _check_batched(vtx_pos, tris, tri_valid):
+    if vtx_pos.dim() != 3 or tris.dim() != 3 or tri_valid.dim() != 2 \
+            or not (vtx_pos.shape[0] == tris.shape[0]
+                    == tri_valid.shape[0] >= 1):
+        raise ValueError(
+            f"expected vtx_pos [S, N, 2], tris [S, T, 3], tri_valid [S, T] "
+            f"with S >= 1, got {tuple(vtx_pos.shape)}, {tuple(tris.shape)}, "
+            f"{tuple(tri_valid.shape)}")
 
 def _contiguous(**tensors):
     for name, t in tensors.items():
@@ -543,6 +583,41 @@ def rasterize_tri_ids_v4(vtx_pos, tris, tri_valid, *, height: int,
     return out.reshape(height, width)
 
 
+def rasterize_tri_ids_v4_batched(vtx_pos, tris, tri_valid, *, height: int,
+                                 width: int, row_tile: int = 2,
+                                 long_thresh: float = 48.0):
+    """Triangle-id buffers [S, H, W] int32 of S images (vtx_pos [S, N, 2],
+    tris [S, T, 3], tri_valid [S, T]) by one launch of the batched v4
+    kernel; image s gets what rasterize_tri_ids_v4 gives it alone. CPU
+    tensors run the plain version."""
+    if vtx_pos.device.type == "cpu":
+        return rasterize_tri_ids_v4_batched_ref(
+            vtx_pos, tris, tri_valid, height=height, width=width,
+            row_tile=row_tile, long_thresh=long_thresh)
+    _check_batched(vtx_pos, tris, tri_valid)
+    _check(vtx_pos[0], tris[0], tri_valid[0], height, width, row_tile)
+    _check_cuda(vtx_pos, height, width, row_tile)
+    C, lo_pos, hi_pos, counts = v4_setup_batched(
+        vtx_pos, tris, tri_valid, height=height, row_tile=row_tile,
+        long_thresh=long_thresh)
+    S, T = tris.shape[:2]
+    out = torch.empty((S, height * width), dtype=torch.int32,
+                      device=vtx_pos.device)
+    _contiguous(C=C, lo_pos=lo_pos, hi_pos=hi_pos, counts=counts)
+    lib = _get_lib()
+    work = work_counters(out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = lib.raster_v4_batched_launch(
+        C.data_ptr(), S, T, lo_pos.data_ptr(), hi_pos.data_ptr(),
+        counts.data_ptr(), out.data_ptr(), height, width, row_tile,
+        work.data_ptr(), stream)
+    rasterize_tri_ids_v4_batched.launches += 1
+    rasterize_tri_ids_v4_batched.images += S
+    if err != 0:
+        raise RuntimeError(f"raster_v4_batched launch failed: cudaError {err}")
+    return out.reshape(S, height, width)
+
+
 def rasterize_tri_ids_v3(vtx_pos, tris, tri_valid, *, height: int,
                          width: int, row_tile: int = 2, tri_block: int = 128,
                          long_thresh: float = 64.0):
@@ -577,3 +652,5 @@ def rasterize_tri_ids_v3(vtx_pos, tris, tri_valid, *, height: int,
 rasterize_tri_ids_v4.launches = 0
 rasterize_tri_ids_v3.launches = 0
 rasterize_tri_ids_v2.launches = 0
+rasterize_tri_ids_v4_batched.launches = 0
+rasterize_tri_ids_v4_batched.images = 0

@@ -96,6 +96,23 @@ tparams = FlameParams.from_dict({"engine": {"max_features": 256,
 res = run_offline_tracking(with_occlusion(synthetic_frames(tseq), 5, 5),
                            cam, tparams, ba_refine=True, device="cpu")
 assert res.track_failed_frames >= 1 and res.frames_processed >= 3, res
+# Many streams, and the viz modules.
+import flame_ros_torch.ops.colormap
+import flame_ros_torch.viz.export
+import flame_ros_torch.viz.html_viewer
+import flame_ros_torch.viz.live_viewer
+from flame_ros_torch.geometry.se3 import SE3
+from flame_ros_torch.parallel.multi_stream import MultiStreamRunner
+from flame_ros_torch.viz.debug_images import render_debug_images
+runner = MultiStreamRunner(cam, 2, params=params, device="cpu",
+                           deferred_triangulation=True)
+for i in range(3):
+    f = (0.0, i, SE3(seq.poses.q[i], seq.poses.t[i]), seq.images[i])
+    assert runner.update([f, f])
+runner.drain_topologies()
+runner.shutdown()
+assert len(runner.get_meshes()) == 2
+assert render_debug_images(eng, seq.images[2].numpy())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flame_ros_tpu"))
 print("LOADED", bad)
@@ -154,6 +171,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--dataset", "synthetic", "--frames", "2",
               "--pose-source", "tracking", "--ba-refine"])
+    from flame_ros_torch.parallel.multi_stream import MultiStreamRunner
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiStreamRunner(QVGA, 2)
     # Explicit CPU works.
     assert Flame(QVGA.width, QVGA.height, cam=QVGA,
                  device="cpu").device.type == "cpu"

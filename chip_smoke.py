@@ -105,7 +105,30 @@ Phases, each printed as one line:
    product colored exactly on the finite pixels of the idepth map), host
    ms per product, the final mesh as PLY and as the HTML viewer read back
    (vertex and face counts), and a FlameServer on the card streaming 10
-   frames to a LiveMeshViewer whose mesh JSON grows.
+   frames to a LiveMeshViewer whose mesh JSON grows;
+12. many devices on the one card, each layout naming it several times,
+   13 frames (three installs) of phase 4's sequence, stream k fed frame
+   max(i - k, 0): (a) stream groups, S = 4 on [cuda:0] * 2 and S = 8 on
+   [cuda:0] * 4 — every state leaf equal to the plain runner's bit for
+   bit, one batched v4 launch per group and update (the runner's
+   per-group counts, the wrapper's and the device work counter), no
+   host sync in a group's step; (b) the spatial NLTGV2 partition, S = 2
+   on [[cuda:0] * 2] and [[cuda:0] * 4], against the plain runner with
+   the CPU test's bounds (maps 1e-4, vtx_x and edge_q 1e-5, graph
+   membership equal, stats 1e-3 relative), no host sync in
+   `batched_full_step_spatial`, the sweep's CUDA-event ms beside the
+   plain sweep's; (c) `hybrid_bundle_adjust_sharded` over [cuda:0] * 2
+   and * 4 at 16384 point lanes on phase 9's final window (its selected
+   points, the rest padding) within 1e-5 of the unsharded solve, no
+   host sync in `bundle_adjust_window_sharded`, ms / launches / busy ms
+   per call beside the unsharded one, and the nodelet with
+   ba_sharded=True equal to phase 9's frame by frame over 20 frames;
+   (d) `parallel/dist_e2e.py` as two gloo processes sharing the card:
+   each rank's payload equal to the single-process run's, a --spatial
+   run, and a run killed after its frame-7 shards restarted from them to
+   the uninterrupted payload; a failed rank fails the phase. Each layout
+   prints ms per update p50/p95, aggregate frames/s, launches and busy
+   ms beside the card's name and power limit.
 
 Any failure exits non-zero. The line before the last is the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`; before
@@ -988,12 +1011,14 @@ def live_frontend(seq, recs4, res4, params, cam, dev, out):
 
 def device_events(fn):
     """(device events, device-busy ms) of one call of fn, from
-    torch.profiler: kernels, copies and fills on the card."""
+    torch.profiler: kernels, copies and fills on the card. Only device
+    activity is recorded: with the host's ops too, phase 12's ten
+    profiled calls took 120.2 s on an H100 (700 W) against 17.4 s, for
+    the same launch counts within a few and the same busy ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     n, busy = 0, 0.0
@@ -1022,29 +1047,26 @@ def no_sync(fn):
     return True
 
 
-class CallTimer:
-    """Wraps a function of a module: each call between two CUDA events and
-    on the host clock (the time to launch it), the last call's arguments
-    and every call's result kept."""
+class EventTimer:
+    """Wraps a function of a module with two CUDA events per call (only
+    the events are kept: the calls may run under torch.func.vmap)."""
 
     def __init__(self, mod, name):
         self.mod, self.name = mod, name
         self.fn = getattr(mod, name)
-        self.events, self.host_s, self.outs, self.last = [], [], [], None
+        self.events = []
 
-    def __call__(self, *args, **kw):
+    def call(self, *args, **kw):
         import torch
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
         a.record()
         out = self.fn(*args, **kw)
         b.record()
-        self.host_s.append(time.perf_counter() - t0)
         self.events.append((a, b))
-        self.outs.append(out)
-        self.last = (args, kw)
         return out
+
+    __call__ = call
 
     def __enter__(self):
         setattr(self.mod, self.name, self)
@@ -1057,6 +1079,23 @@ class CallTimer:
         import torch
         torch.cuda.synchronize()
         return [a.elapsed_time(b) for a, b in self.events]
+
+
+class CallTimer(EventTimer):
+    """An EventTimer that also keeps each call's host time (the time to
+    launch it), the last call's arguments and every call's result."""
+
+    def __init__(self, mod, name):
+        super().__init__(mod, name)
+        self.host_s, self.outs, self.last = [], [], None
+
+    def __call__(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.call(*args, **kw)
+        self.host_s.append(time.perf_counter() - t0)
+        self.outs.append(out)
+        self.last = (args, kw)
+        return out
 
 
 def track_bands(res, ref, keys):
@@ -1320,7 +1359,7 @@ def tracking_ba_path(seq, ms4, ms8, params, cam, dev, out):
     phase("tracking_ba_path", checks=checks, **summary)
     failed = [k for k, v in checks.items() if not v]
     assert not failed, failed
-    return summary
+    return summary, node, stats
 
 
 class BatchedRecorder:
@@ -1659,6 +1698,426 @@ def multi_stream_path(seq, ms4, params, cam, dev, out):
             bbox_pairs=pairs)
     phase("multi_stream_kernel", **{f"S{k}": v for k, v in times.items()})
     return dict(times[S], launches=launches["v4_batched"], max_err=max_err)
+
+
+def batched_counts(rc, dev):
+    """The batched v4 wrapper's launches and images, the device work
+    counters, and the other kernels' wrapper launches."""
+    work = dict(zip(rc.WORK_SLOTS, rc.work_counters(dev).tolist()))
+    return {"v4_batched": rc.rasterize_tri_ids_v4_batched.launches,
+            "v4_batched_images": rc.rasterize_tri_ids_v4_batched.images,
+            "work_v4_batched": work["v4_batched"],
+            "work_v4_batched_images": work["v4_batched_images"],
+            "v4": rc.rasterize_tri_ids_v4.launches,
+            "v2": rc.rasterize_tri_ids_v2.launches,
+            "v3": rc.rasterize_tri_ids_v3.launches}
+
+
+def run_workers(dev, out):
+    """Phase 12 (d): `parallel/dist_e2e.py` as subprocesses, two ranks
+    (gloo) sharing the card: the uninterrupted run (frame-7 shards, then
+    --bench), the single-process baseline, --spatial, and a run whose
+    rank 1 is killed after its shards are on disk, restarted from them.
+    Every process is stopped before this returns."""
+    import socket
+    module = "flame_ros_torch.parallel.dist_e2e"
+    env = dict(os.environ, PYTHONPATH=REPO)
+
+    def port():
+        sk = socket.socket()
+        sk.bind(("127.0.0.1", 0))
+        p = sk.getsockname()[1]
+        sk.close()
+        return str(p)
+
+    def start(*args):
+        return subprocess.Popen([sys.executable, "-m", module, *args],
+                                cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    on = ["--device", "cpu"] if dev.type == "cpu" else []
+
+    def pair(*extra):
+        pt = port()
+        return [start(str(r), "2", pt, "13", *on, *extra) for r in (0, 1)]
+
+    def finish(procs):
+        outs = []
+        for p in procs:
+            o, _ = p.communicate(timeout=400)
+            outs.append(o)
+        return outs
+
+    def payloads(text, marker="DIST_E2E_OK"):
+        got = {}
+        for line in text.splitlines():
+            if line.startswith(marker + " "):
+                got[int(line.split("stream=")[1].split()[0])] = \
+                    line.split("frames=", 1)[1]
+        return got
+
+    ck_a = os.path.join(out, "dist_ckpt_a")
+    ck_b = os.path.join(out, "dist_ckpt_b")
+    for f in os.listdir(out):
+        if f.startswith("dist_ckpt_"):
+            os.remove(os.path.join(out, f))
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        a = pair(f"--ckpt={ck_a}", "--ckpt-at=7", "--bench")
+        single = [start("0", "2", "0", "13", *on, "--single", "--bench")]
+        sp = pair("--spatial")
+        b = pair(f"--ckpt={ck_b}", "--ckpt-at=7", "--pause-after-save=300")
+        procs = a + single + sp + b
+        shards = [f"{ck_b}.p{r}.npz" for r in (0, 1)]
+        deadline = time.time() + 300
+        while not all(os.path.exists(f) for f in shards):
+            if any(p.poll() is not None for p in b):
+                raise AssertionError("a killed-run rank exited early: "
+                                     + b[0].communicate()[0][-2000:])
+            assert time.time() < deadline, "no checkpoint shards"
+            time.sleep(0.2)
+        b[1].kill()
+        b[1].wait(timeout=60)
+        b[0].kill()
+        b[0].wait(timeout=60)
+        killed_rc = [b[0].returncode, b[1].returncode]
+        # The restart runs beside the runs still going.
+        c = pair(f"--ckpt={ck_b}", "--ckpt-at=7", "--ckpt-load")
+        procs += c
+        outs_a, outs_s, outs_sp = finish(a), finish(single), finish(sp)
+        outs_c = finish(c)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    codes = {"uninterrupted": [p.returncode for p in a],
+             "single": [single[0].returncode],
+             "spatial": [p.returncode for p in sp],
+             "restarted": [p.returncode for p in c]}
+    for name, rcs in codes.items():
+        if any(rcs):
+            text = {"uninterrupted": outs_a, "single": outs_s,
+                    "spatial": outs_sp, "restarted": outs_c}[name]
+            raise AssertionError(f"{name} worker failed {rcs}: "
+                                 + " | ".join(t[-1500:] for t in text))
+    ref = payloads(outs_s[0])
+    got_a = {k: v for o in outs_a for k, v in payloads(o).items()}
+    got_c = {k: v for o in outs_c for k, v in payloads(o).items()}
+    got_sp = {k: v for o in outs_sp
+              for k, v in payloads(o, "DIST_E2E_SPATIAL_OK").items()}
+    def fps_of(outs):
+        return [float(line.split("fps=")[1]) for o in outs
+                for line in o.splitlines() if line.startswith("DIST_E2E_FPS")]
+
+    fps, fps_single = fps_of(outs_a), fps_of(outs_s)
+    assert sorted(ref) == [0, 1] and got_a == ref, (got_a, ref)
+    assert got_c == got_a, (got_c, got_a)
+    assert sorted(got_sp) == [0, 1], outs_sp
+    assert all("CKPT_LOADED" in o for o in outs_c)
+    assert all(rc_ != 0 for rc_ in killed_rc), killed_rc
+    return dict(single_payload=ref, two_process_payload=got_a,
+                restarted_payload=got_c, spatial_payload=got_sp,
+                killed_returncodes=killed_rc,
+                bench_frames_per_s_per_rank=fps,
+                bench_aggregate_frames_per_s=sum(fps),
+                single_process_bench_frames_per_s=fps_single,
+                seconds=time.perf_counter() - t0, device=str(dev))
+
+
+def multi_device_path(seq, params, cam, dev, out, node9, stats9, smi,
+                      ba_points=16384, nodelet_frames=20):
+    """Phase 12: the multi-device paths on one card. (a) stream groups,
+    (b) the spatial NLTGV2 partition, (c) the point-sharded BA, (d) two
+    processes sharing the card. node9 and stats9: phase 9's nodelet and
+    its per-frame stats."""
+    import warnings
+    import numpy as np
+    import torch
+    from flame_ros_torch.frontends import nodelet as nodelet_mod
+    from flame_ros_torch.frontends import offline_runner
+    from flame_ros_torch.frontends.nodelet import FlameNodelet
+    from flame_ros_torch.geometry.se3 import SE3
+    from flame_ros_torch.models import ba as ba_mod
+    from flame_ros_torch.models.engine import (DEVICE_STATS_KEYS,
+                                               state_from_leaves, state_leaves)
+    from flame_ros_torch.ops import nltgv2 as reg_ops
+    from flame_ros_torch.ops import raster_cuda as rc
+    from flame_ros_torch.parallel import multi_stream as ms_mod
+    from flame_ros_torch.parallel import spatial_pd
+    from flame_ros_torch.parallel.multi_stream import MultiStreamRunner
+    t_phase = time.perf_counter()
+    imgs = torch.clamp(seq.images, 0, 255).to(torch.uint8).cpu().numpy()
+    seq_np = (imgs, seq.depths.cpu().numpy(), seq.poses.q.cpu().numpy(),
+              seq.poses.t.cpu().numpy(), np.asarray(seq.timestamps))
+    n = 13          # poseframes 0, 6, 12: three topology installs
+    per = n if dev.type == "cuda" else 0    # batched launches per group
+
+    def drive(r, S):
+        """Host ms of each update to its stats read, and the stats."""
+        t_upd, rows = [], []
+        for i in range(n):
+            frames, _ = ms_frames(seq_np, i, S, SE3)
+            t0 = time.perf_counter()
+            r.update(frames)
+            rows.append(r.flush_stats())
+            t_upd.append((time.perf_counter() - t0) * 1e3)
+        return np.asarray(t_upd), rows
+
+    prof_s = []
+
+    def profiled(fn):
+        t0 = time.perf_counter()
+        out_ = device_events(fn)
+        prof_s.append(time.perf_counter() - t0)
+        return out_
+
+    def timing(ms_arr, S, r):
+        """ms per update p50/p95 and aggregate frames/s over the steady
+        frames (from the fourth), and launches / card-busy ms of one more
+        update (an ordinary frame) by the profiler."""
+        steady = ms_arr[3:]
+        frames, _ = ms_frames(seq_np, n, S, SE3)
+        ev, busy = profiled(lambda: r.update(frames))
+        return {"ms_per_update_p50": float(np.percentile(steady, 50)),
+                "ms_per_update_p95": float(np.percentile(steady, 95)),
+                "aggregate_frames_per_s": float(
+                    S * len(steady) / (steady.sum() / 1e3)),
+                "launches_per_update": ev, "busy_ms_per_update": busy}
+
+    def device_inputs(S):
+        ids = [max(n - 1 - k, 0) for k in range(S)]
+        meta = torch.zeros((S, 10), dtype=torch.float32, device=dev)
+        meta[:, :4] = seq.poses.q[ids].to(dev)
+        meta[:, 4:7] = seq.poses.t[ids].to(dev)
+        meta[:, 7] = torch.tensor(ids, dtype=torch.float32, device=dev)
+        return torch.from_numpy(imgs[ids]).to(dev), meta
+
+    # (a) stream groups ----------------------------------------------------
+    section = {}
+    t_sec = time.perf_counter()
+    for name, S, G in (("S4_2groups", 4, 2), ("S8_4groups", 8, 4)):
+        plain = MultiStreamRunner(cam, S, params=params, device=dev)
+        with vmap_fallback_errors():
+            p_ms, p_rows = drive(plain, S)
+        grp = MultiStreamRunner(cam, S, params=params, mesh=[dev] * G)
+        rc.reset_counters()
+        with vmap_fallback_errors():
+            g_ms, g_rows = drive(grp, S)
+        counts = batched_counts(rc, dev)
+        differ = [j for j, (a, b) in enumerate(zip(
+            state_leaves(grp.states), state_leaves(plain.states)))
+            if not torch.equal(a, b)]
+        assert not differ, f"{name}: leaves {differ} differ from plain"
+        stats_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1.0)
+                        for ra, rb in zip(g_rows, p_rows)
+                        for a, b in zip(ra, rb) for k in a)
+        assert stats_rel <= 1e-5, f"{name}: stats differ from plain"
+        launched = list(grp.group_launches)
+        assert launched == [per] * G, launched
+        assert counts == {"v4_batched": per * G,
+                          "v4_batched_images": per * S,
+                          "work_v4_batched": per * G,
+                          "work_v4_batched_images": per * S, "v4": 0,
+                          "v2": 0, "v3": 0}, counts
+        b_imgs, b_meta = device_inputs(S // G)
+        for is_pf in (False, True):
+            no_sync(lambda: ms_mod.batched_full_step(
+                grp._gstates[0], b_imgs, b_meta, None, cam=cam,
+                params=grp.params, is_pf=is_pf, kf_slot=0))
+        phase("multi_device_streams", layout=name, streams=S, groups=G,
+              frames=n, card=smi, leaves_equal_plain=True,
+              stats_equal_plain=g_rows == p_rows,
+              stats_max_rel_diff=stats_rel, no_host_sync=True,
+              launches_per_group=launched, counts=counts,
+              groups_timing=timing(g_ms, S, grp),
+              plain_timing=timing(p_ms, S, plain))
+        grp.shutdown()
+        plain.shutdown()
+
+    # (b) the spatial partition, S = 2 -------------------------------------
+    section["a"], t_sec = time.perf_counter() - t_sec, time.perf_counter()
+    S = 2
+    plain = MultiStreamRunner(cam, S, params=params, device=dev)
+    with EventTimer(reg_ops, "pd_iterate") as pt:
+        p_ms, p_rows = drive(plain, S)
+    plain_sweep = pt.ms()
+    p_st = [t.clone() for t in state_leaves(plain.states)]
+    p_maps = plain.get_idepth_maps()
+    p_time = timing(p_ms, S, plain)      # one more update: after the copies
+    for P in (2, 4):
+        sp_params = dataclasses.replace(params, engine=dataclasses.replace(
+            params.engine, spatial_parts=P))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            spr = MultiStreamRunner(cam, S, params=sp_params,
+                                    mesh=[[dev] * P])
+        rc.reset_counters()
+        with EventTimer(spatial_pd, "pd_iterate_spatial_batched") as st_:
+            s_ms, s_rows = drive(spr, S)
+        counts = batched_counts(rc, dev)
+        launched = list(spr.group_launches)
+        assert all(p is not None for p in spr.parts)
+        assert len(st_.events) >= n - 1, len(st_.events)
+        ma, mb = spr.get_idepth_maps(), p_maps
+        both = np.isfinite(ma) & np.isfinite(mb)
+        agree = float((np.isfinite(ma) == np.isfinite(mb)).mean())
+        a_st, b_st = spr.states, state_from_leaves(p_st)
+        g = a_st.vtx_in_graph
+        ev = a_st.edge_valid
+        diff = {
+            "finite_agreement": agree,
+            "map_max_abs": float(np.abs(ma - mb)[both].max()),
+            "vtx_in_graph_equal": bool(torch.equal(g, b_st.vtx_in_graph)),
+            "vtx_x_max_abs": float((a_st.vtx_x - b_st.vtx_x)[g].abs().max()),
+            "edge_q_max_abs": float(
+                (a_st.edge_q - b_st.edge_q)[ev].abs().max()),
+            "stats_rel": max(
+                abs(r1[k] - r2[k]) / max(abs(r2[k]), 1.0)
+                for r1, r2 in zip(s_rows[-1], p_rows[-1])
+                for k in ("coverage", "num_tris", "nltgv2_total_data_cost")),
+            "leaves_bit_equal": all(torch.equal(x, y) for x, y in zip(
+                state_leaves(a_st), state_leaves(b_st)))}
+        ok = (agree > 0.999 and diff["map_max_abs"] < 1e-4
+              and diff["vtx_in_graph_equal"] and diff["vtx_x_max_abs"] <= 1e-5
+              and diff["edge_q_max_abs"] <= 1e-5 and diff["stats_rel"] <= 1e-3)
+        b_imgs, b_meta = device_inputs(S)
+        no_sync(lambda: ms_mod.batched_full_step_spatial(
+            spr._gstates[0], spr.parts[0], b_imgs, b_meta, None, cam=cam,
+            params=spr.params, is_pf=False, kf_slot=0))
+        sweep = st_.ms()
+        phase("multi_device_spatial", streams=S, parts=P, frames=n,
+              card=smi, diff_vs_plain=diff, within_bounds=ok,
+              no_host_sync=True, counts=counts,
+              launches_per_group=launched,
+              sweep_ms_p50=float(np.percentile(sweep, 50)),
+              plain_sweep_ms_p50=float(np.percentile(plain_sweep, 50)),
+              spatial_timing=timing(s_ms, S, spr), plain_timing=p_time)
+        assert ok, diff
+        assert launched == [per] and counts["v4_batched"] == per, \
+            (launched, counts)
+        spr.shutdown()
+    plain.shutdown()
+
+    # (c) the point-sharded BA at a dense budget ---------------------------
+    section["b"], t_sec = time.perf_counter() - t_sec, time.perf_counter()
+    st = node9.engine.state
+    ptp = params.pose_tracking
+    # The engine holds fewer feature slots than the budget: the gauge's
+    # features fill the first lanes, the rest are point_valid=False pads
+    # (as a dense configuration's unfilled budget is).
+    Pb = ba_points
+    Pg = min(Pb, int(st.feat.valid.shape[0]))
+    packed = ba_mod.gather_ba_inputs(
+        st.kf_valid, st.kf_ids, st.feat.valid, st.feat.kf_idx,
+        st.feat.uv_ref, st.feat.mu, budget=Pg, anchor=ptp.ba_anchor)
+    buf = packed.cpu().numpy()
+    K = int(st.kf_valid.shape[0])
+    ref_slot, n_sel = int(buf[2 * K]), int(buf[2 * K + 1])
+    off = 2 * K + 2
+    uv = torch.zeros((Pb, 2), dtype=torch.float32, device=dev)
+    uv[:Pg] = packed[off:off + 2 * Pg].reshape(Pg, 2)
+    d0 = torch.full((Pb,), 0.5, dtype=torch.float32, device=dev)
+    d0[:Pg] = packed[off + 2 * Pg:off + 3 * Pg]
+    pv = torch.zeros((Pb,), dtype=torch.bool, device=dev)
+    pv[:Pg] = packed[off + 3 * Pg:off + 4 * Pg] > 0.5
+
+    def roll(a):
+        return torch.roll(a, -ref_slot, 0)
+
+    win = (roll(st.kf_pyrs), roll(st.kf_q), roll(st.kf_t), roll(st.kf_valid),
+           uv, d0, pv)
+    kw = dict(cam=cam, num_iters=4, coarse_iters=2, level=1)
+
+    def timed(fn):
+        """One call between two CUDA events (its result is the one
+        checked), then one under the profiler."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out_ = fn()
+        b.record()
+        torch.cuda.synchronize()
+        ev_, busy_ = profiled(fn)
+        return out_, {"ms": a.elapsed_time(b), "launches": ev_,
+                      "busy_ms": busy_}
+
+    ref, t_ref = timed(lambda: ba_mod.hybrid_bundle_adjust(*win, rounds=1,
+                                                           **kw))
+    ba_rows = {"unsharded": t_ref}
+    ba_ok = True
+    for nsh in (2, 4):
+        res, t_sh = timed(lambda: ba_mod.hybrid_bundle_adjust_sharded(
+            [dev] * nsh, *win, **kw))
+        d = {k: float((getattr(res, k) - getattr(ref, k)).abs().max())
+             for k in ("q", "t", "idepths", "gains")}
+        d["final_cost_rel"] = abs(float(res.final_cost)
+                                  / float(ref.final_cost) - 1.0)
+        d["offsets_rel"] = float((res.offsets - ref.offsets).abs().max()) \
+            / max(1.0, float(ref.offsets.abs().max()))
+        d["n_valid_equal"] = int(res.n_valid) == int(ref.n_valid)
+        ok = (max(d["q"], d["t"], d["idepths"], d["gains"]) <= 1e-5
+              and d["final_cost_rel"] <= 1e-5 and d["offsets_rel"] <= 1e-4
+              and d["n_valid_equal"])
+        ba_ok &= ok
+        ba_rows[f"shards_{nsh}"] = dict(t_sh, diff=d, within_bounds=ok)
+    uv_obs, obs_ok = ba_mod.match_window_points(
+        win[0][0], win[1][0], win[2][0], *win[:3], uv, d0, pv, cam=cam)
+    uv_obs, obs_ok = ba_mod.refine_matches_2d(win[0][0], uv, win[0], uv_obs,
+                                              obs_ok)
+    no_sync(lambda: ba_mod.bundle_adjust_window_sharded(
+        [dev] * 2, *win, uv_obs=uv_obs, obs_valid=obs_ok, ref_index=0, **kw))
+    # The nodelet with ba_sharded=True (one card: one block) against phase
+    # 9's run, frame by frame over its first frames (two solves).
+    n_nd = nodelet_frames
+    sh_params = dataclasses.replace(params, pose_tracking=dataclasses.replace(
+        ptp, ba_sharded=True))
+    node = FlameNodelet(cam, sh_params, pose_source="tracking",
+                        ba_refine=True, eval_gt_depth=True, trajectory_cap=0,
+                        device=dev)
+    assert node.ba_devices(ptp.ba_budget) == [node.engine.device]
+    stats = []
+    node.on_stats.append(stats.append)
+    t_nd = time.perf_counter()
+    with CallTimer(nodelet_mod, "hybrid_bundle_adjust_sharded") as hs:
+        offline_runner.run_offline_tracking(
+            offline_runner.synthetic_frames(seq), cam, sh_params,
+            out_dir=os.path.join(out, "tracking_ba_sharded"),
+            max_frames=n_nd, device=dev, node=node)
+    traj9 = list(node9.trajectory)[:n_nd]
+    same_traj = len(node.trajectory) == len(traj9) and all(
+        a[0] == b[0] and torch.equal(a[2].q, b[2].q)
+        and torch.equal(a[2].t, b[2].t)
+        for a, b in zip(node.trajectory, traj9))
+    keys = (*DEVICE_STATS_KEYS, "img_id", "track_cost", "track_n_valid",
+            "track_n_inliers")
+
+    def rows(recs):
+        return repr([tuple(r.get(k) for k in keys) for r in recs])
+
+    same_stats = len(stats) == n_nd and rows(stats) == rows(stats9[:n_nd])
+    n_solves = len(node.ba_costs)
+    same_costs = node.ba_costs == node9.ba_costs[:n_solves]
+    phase("multi_device_ba", points=Pb, selected=n_sel,
+          valid_points=int(pv.sum()), card=smi,
+          solves=ba_rows, within_bounds=ba_ok, no_host_sync=True,
+          nodelet_frames=n_nd, nodelet_seconds=time.perf_counter() - t_nd,
+          nodelet_sharded_calls=len(hs.events),
+          nodelet_solves=n_solves, nodelet_trajectory_equal=same_traj,
+          nodelet_stats_equal=same_stats, nodelet_ba_costs_equal=same_costs)
+    assert ba_ok, ba_rows
+    assert len(hs.events) == n_solves >= 1, (len(hs.events), n_solves)
+    assert same_traj and same_stats and same_costs
+
+    # (d) two processes sharing the card -----------------------------------
+    section["c"], t_sec = time.perf_counter() - t_sec, time.perf_counter()
+    workers = run_workers(dev, out)
+    section["d"] = time.perf_counter() - t_sec
+    phase("multi_device_processes", card=smi, **workers)
+    phase("multi_device", seconds=time.perf_counter() - t_phase,
+          section_seconds=section, profiler_seconds=sum(prof_s),
+          profiled_calls=len(prof_s))
 
 
 def viz_path(engine, seq, params, cam, dev, out):
@@ -2114,13 +2573,17 @@ def main():
     _, ms8 = tracking_path(seq, steady, params, VGA, dev, OUT)
 
     # 9. tracking mode with windowed bundle adjustment ------------------
-    tracking_ba_path(seq, steady, ms8["clean"], params, VGA, dev, OUT)
+    _, node9, stats9 = tracking_ba_path(seq, steady, ms8["clean"], params,
+                                        VGA, dev, OUT)
 
     # 10. many streams ---------------------------------------------------
     batched = multi_stream_path(seq, steady, params, VGA, dev, OUT)
 
     # 11. viz ------------------------------------------------------------
     viz_path(engine, seq, params, VGA, dev, OUT)
+
+    # 12. many devices ---------------------------------------------------
+    multi_device_path(seq, params, VGA, dev, OUT, node9, stats9, smi)
 
     # Result lines -----------------------------------------------------
     replaces = {"v4": "flame_ros_tpu/ops/raster_pallas.py:458",

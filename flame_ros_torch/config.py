@@ -243,23 +243,21 @@ class EngineParams:
     # matrix unit) is rejected by FlameParams.resolved.
     nltgv2_adjoint: str | None = None
 
-    # --- Spatial graph partitioning (SURVEY §5.7-5.8: mesh blocks
-    # sharded across devices with halo exchange of boundary primals) ---
-    # Number of vertical-strip partitions of the Delaunay graph the
-    # NLTGV2 sweep shards over (parallel/spatial_pd.py, wired into the
-    # product multi-stream step by MultiStreamRunner(spatial_parts=P)).
-    # 1 = off (single-device sweep, the single-chip product default).
-    # Requires max_features % spatial_parts == 0.
+    # --- Spatial graph partitioning: the NLTGV2 sweep over vertical
+    # strips of the Delaunay graph, one per part device, with a halo
+    # exchange of boundary primals (parallel/spatial_pd.py; the
+    # multi-stream runner on a part layout, MultiStreamRunner(mesh=
+    # [[...]])). 1 = off (the unsharded sweep). Requires
+    # max_features % spatial_parts == 0.
     spatial_parts: int = 1
     # Static halo budget H: owned-vertex slots exported per (part, ring
     # offset) pair per sweep. Must bound the partition's true boundary
     # size for every install (overflow raises at triangulation time).
-    # Measured boundary at V=2048/P=4 vertical strips: ~64 (SCALING_r03).
     spatial_halo_budget: int = 128
     # Static per-part edge budget El (owned + replicated boundary
     # edges). 0 = auto: 1.75 * max_edges / spatial_parts + 128, rounded
     # up to a multiple of 8 — headroom over a balanced partition; a
-    # pathologically unbalanced install raises rather than recompiling.
+    # pathologically unbalanced install raises.
     spatial_edge_budget: int = 0
 
     def spatial_edge_budget_resolved(self) -> int:
@@ -325,12 +323,11 @@ class PoseTrackingParams:
     # engine.max_features / a denser detection grid.
     ba_budget: int = 256
     # Route the window solve through the point-sharded Schur solver
-    # (models/ba.py::hybrid_bundle_adjust_sharded: per-iteration Schur
-    # reductions psum over the device mesh). None = auto by the
-    # RECORDED crossover (SCALING_r04 ba_window_ms: sharding pays only
-    # at P >= ~16384 — 1.19x at 16k, 1.58x at 48k on 4 devices; at
-    # P=256 it LOSES): shard when ba_budget >= 16384 and >= 2 devices
-    # are visible. True/False force it either way.
+    # (models/ba.py::hybrid_bundle_adjust_sharded: the points split over
+    # the visible cards, one sum of the Schur partial sums per
+    # iteration). None = the JAX package's rule: shard when ba_budget >=
+    # 16384 and >= 2 cards are visible (whether it pays on H100s is not
+    # measured, PERF.md). True/False force it either way.
     ba_sharded: bool | None = None
     # BA gauge/point-anchor keyframe: "newest" (default; fresh
     # detections own the points when the pool has turnover) or

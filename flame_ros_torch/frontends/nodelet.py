@@ -28,8 +28,9 @@ constant-velocity coasting, keyframe-ring relocalization after repeated
 failures (`ring_relocalize`) and a windowed pose graph over keyframes
 (`models/pose_graph.py`), optionally refined on every poseframe by
 photometric windowed bundle adjustment over the keyframe ring
-(`ba_refine=True`, `models/ba.py::hybrid_bundle_adjust`, unsharded on the
-engine's device). The tracker's solves run on the engine's device; each
+(`ba_refine=True`, `models/ba.py::hybrid_bundle_adjust`; at dense point
+budgets `hybrid_bundle_adjust_sharded`, the points split over the visible
+cards). The tracker's solves run on the engine's device; each
 result comes back in one device-to-host copy, and the per-frame pose
 bookkeeping (a few quaternion products) is done on those host tensors.
 Each frame is uploaded and pyramided once: the tracker's 4-level pyramid
@@ -51,7 +52,8 @@ from flame_ros_torch.config import FlameParams
 from flame_ros_torch.eval.metrics import has_ground_truth
 from flame_ros_torch.geometry.camera import Pinhole
 from flame_ros_torch.geometry.se3 import SE3
-from flame_ros_torch.models.ba import gather_ba_inputs, hybrid_bundle_adjust
+from flame_ros_torch.models.ba import (gather_ba_inputs, hybrid_bundle_adjust,
+                                      hybrid_bundle_adjust_sharded)
 from flame_ros_torch.models.engine import Flame
 from flame_ros_torch.models.pose_graph import make_graph, optimize_pose_graph
 from flame_ros_torch.models.tracking import (TrackResult, ring_relocalize,
@@ -89,9 +91,11 @@ class FlameNodelet:
       monocular scale; otherwise it is arbitrary.
     ba_refine: photometric windowed bundle adjustment over the keyframe
     ring on every poseframe (meaningful with pose_source="tracking";
-    external poses are ground truth). It solves on the engine's device,
-    whatever the point budget; the point-sharded solver
-    (pose_tracking.ba_sharded=True) is not part of this package.
+    external poses are ground truth). pose_tracking.ba_sharded routes the
+    window solve through the point-sharded solver: None shards when
+    ba_budget >= 16384 and at least two cards are visible (the JAX
+    package's rule; on the CPU there is one device), True always (over
+    one device if only one is visible), False never.
     The engine runs on `device` (the card unless the caller asks for
     another)."""
 
@@ -121,11 +125,6 @@ class FlameNodelet:
         self.ba_costs: list[float] = []
         self.cam = cam
         self.params = params or FlameParams()
-        if ba_refine and self.params.pose_tracking.ba_sharded:
-            raise ValueError(
-                "pose_tracking.ba_sharded=True: the point-sharded BA solver "
-                "is not ported (ROADMAP.md, \"Do not port\"); leave it None "
-                "to solve on the engine's device")
         self.engine = Flame(cam.width, cam.height, cam=cam,
                             params=self.params, device=device)
         self.queue: ThreadSafeQueue[InputFrame] = ThreadSafeQueue(queue_size)
@@ -457,11 +456,16 @@ class FlameNodelet:
         # One round of hybrid BA per poseframe: epipolar matches freed
         # from the wrong-pose line by 2-D LK supply the reprojection
         # channels; the per-poseframe cadence re-estimates the matches
-        # from the previous call's poses.
-        res = hybrid_bundle_adjust(
-            roll(st.kf_pyrs), roll(st.kf_q), roll(st.kf_t),
-            roll(st.kf_valid), uv, d0, pv, cam=self.cam, rounds=1,
-            num_iters=4, coarse_iters=2, level=1)
+        # from the previous call's poses. At dense budgets the window
+        # solve's points split over the cards (ba_devices).
+        win = (roll(st.kf_pyrs), roll(st.kf_q), roll(st.kf_t),
+               roll(st.kf_valid), uv, d0, pv)
+        kw = dict(cam=self.cam, num_iters=4, coarse_iters=2, level=1)
+        devices = self.ba_devices(P)
+        if devices is not None:
+            res = hybrid_bundle_adjust_sharded(devices, *win, **kw)
+        else:
+            res = hybrid_bundle_adjust(*win, rounds=1, **kw)
         host = torch.cat([res.q, res.t, res.final_cost.expand(K, 1)],
                          dim=1).cpu().numpy()
         self.ba_costs.append(float(host[0, 7]))
@@ -473,6 +477,27 @@ class FlameNodelet:
             [int(kf_ids[s]) for s in live],
             SE3(torch.from_numpy(qt[live, :4].copy()),
                 torch.from_numpy(qt[live, 4:].copy())))
+
+    def ba_devices(self, P: int):
+        """The device list of the point-sharded BA solve, or None for the
+        unsharded one. pose_tracking.ba_sharded None: shard when P >=
+        16384 and at least two cards are visible (on the CPU there is one
+        device); True: always. The list is the largest number of visible
+        cards that divides P, starting at the engine's card (on the CPU,
+        the one CPU device)."""
+        use = self.params.pose_tracking.ba_sharded
+        dev = self.engine.device
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+        if use is None:
+            use = P >= 16384 and n >= 2
+        if not use:
+            return None
+        d = n
+        while d > 1 and P % d:
+            d -= 1
+        if dev.type != "cuda":
+            return [dev]
+        return [torch.device("cuda", (dev.index + k) % n) for k in range(d)]
 
     def _process(self, frame: InputFrame):
         p = self.params
@@ -608,3 +633,14 @@ class FlameNodelet:
                 })
             for cb in self.on_stats:
                 cb(rec)
+
+
+def main(argv=None):
+    """Deprecated entry, kept as in the JAX package: the network
+    streaming server is `flame_ros_torch.frontends.serve`."""
+    from flame_ros_torch.frontends.serve import main as serve_main
+    return serve_main(argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -27,11 +27,13 @@ schedule is a Python loop over Python ints, the [K*D, K*D] solve is
 damping are `torch.where`. The JAX package's HIGHEST-precision
 contractions are f32 here (the package turns TF32 off).
 
-Not ported: `bundle_adjust_window_sharded`, `_ba_window_sharded` and
-`hybrid_bundle_adjust_sharded` (the point axis sharded over a device
-mesh). They pay only at >= 16k points across devices, the pod-dense
-sharded configuration was found accuracy-broken, and ROADMAP.md lists
-them under "Do not port". One card solves every budget unsharded.
+The point-sharded solver (`bundle_adjust_window_sharded`,
+`hybrid_bundle_adjust_sharded`) splits the points over a device list:
+each block builds its Schur partial sums on its device, one sum per
+iteration onto the first device assembles the pose system, and every
+block back-substitutes its depths from the one solve (the JAX package's
+psums over a ("feat",) mesh). The unsharded solve is the same code on one
+block.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from flame_ros_torch.models.tracking import _twist_grid
 from flame_ros_torch.ops import epipolar as ep
 from flame_ros_torch.ops.pyramid import (bilinear_pyramid,
                                          bilinear_pyramid_batched)
+from flame_ros_torch.utils.device import resolve_devices
 
 # jnp.maximum(d, 1e-6) as a tensor operand, so that forward mode splits a
 # tie as JAX does (a CPU scalar joins a tensor on any device).
@@ -454,6 +457,40 @@ def _linearize(channels, q, t, g, o, l: int, d, D: int):
     return rr, ww, jv[:D].permute(1, 2, 3, 0), jv[D]
 
 
+class _Shard(NamedTuple):
+    """One device's points of a window solve, with the replicated window
+    inputs on that device."""
+    device: torch.device
+    kf_pyrs: torch.Tensor
+    kf_q: torch.Tensor
+    kf_t: torch.Tensor
+    kf_valid: torch.Tensor
+    uv_ref: torch.Tensor
+    idepth0: torch.Tensor
+    point_valid: torch.Tensor
+    uv_obs: object
+    obs_valid: object
+
+
+def _sum_on(parts, device):
+    """Sum of tensors on possibly different devices, on `device` (one
+    part: that part itself)."""
+    out = parts[0].to(device, non_blocking=True)
+    for x in parts[1:]:
+        out = out + x.to(device, non_blocking=True)
+    return out
+
+
+def _cost_terms(rr, ww, wmask, huber_delta: float):
+    """(numerator, denominator) of the robust cost: clamped |r| summed
+    over the weighted (point, frame) pairs, and their weight."""
+    w = (ww * wmask)[..., None]
+    num = torch.sum(torch.where(
+        w > 0, torch.clamp(torch.abs(rr), max=3 * huber_delta),
+        torch.zeros_like(rr)))
+    return num, torch.sum(w)
+
+
 def bundle_adjust_window(
     kf_pyrs,           # [K, L, H, W] keyframe pyramids
     kf_q, kf_t,        # [K, 4], [K, 3] initial poses (camera-to-world)
@@ -462,20 +499,9 @@ def bundle_adjust_window(
     idepth0,           # [P] initial inverse depths (ref frame)
     point_valid,       # [P] bool
     *,
-    ref_index: int = 0,
-    cam: Pinhole,
-    num_iters: int = 5,
-    coarse_iters: int = 10,
-    level: int = 1,
-    huber_delta: float = 8.0,
-    depth_prior_weight: float = 50.0,
-    damping: float = 0.1,
-    optimize_poses: bool = True,
-    estimate_affine: bool = True,
-    gradient_weight: float = 0.5,
     uv_obs=None,           # [P, K, 2] observed pixel matches per frame
     obs_valid=None,        # [P, K] bool
-    reproj_weight: float = 4.0,
+    **ba_kwargs,
 ) -> BAResult:
     """Joint pose+depth Gauss-Newton over the keyframe window.
 
@@ -492,70 +518,168 @@ def bundle_adjust_window(
     blocks grow 6 -> 8). gradient_weight > 0 adds a gradient-magnitude
     channel gw * (|grad I_j|(warp) - gain_j * |grad I_ref|(p)).
     uv_obs/obs_valid add reprojection channels reproj_weight *
-    (pi(warp) - uv_obs[p, j]). Returns a BAResult."""
-    K = kf_q.shape[0]
-    P = uv_ref.shape[0]
-    L, H, W = kf_pyrs.shape[1:]
-    dev = kf_pyrs.device
-    f32 = torch.float32
-    ref_q, ref_t = kf_q[ref_index], kf_t[ref_index]
-    ref_pyr = kf_pyrs[ref_index]
-    kf_flat = kf_pyrs.reshape(K, -1)
-    rows = torch.arange(K, device=dev)
-    lv_final = _level(level, dev)
-    iref, iok = bilinear_pyramid(ref_pyr, uv_ref, lv_final)
-    pvalid = point_valid & iok & (idepth0 > 1e-4)
-    # Frame mask: every valid keyframe but the reference.
-    fmask = kf_valid & (torch.arange(K, device=dev) != ref_index)
-    wmask = fmask.to(f32)[:, None] * pvalid.to(f32)[None, :]   # [K, P]
+    (pi(warp) - uv_obs[p, j]). The keyword arguments and their defaults
+    are `_ba_solve`'s. Returns a BAResult."""
+    return _ba_solve([_Shard(kf_pyrs.device, kf_pyrs, kf_q, kf_t, kf_valid,
+                             uv_ref, idepth0, point_valid, uv_obs,
+                             obs_valid)], **ba_kwargs)
 
+
+def bundle_adjust_window_sharded(devices, kf_pyrs, kf_q, kf_t, kf_valid,
+                                 uv_ref, idepth0, point_valid, *,
+                                 uv_obs=None, obs_valid=None,
+                                 **ba_kwargs) -> BAResult:
+    """`bundle_adjust_window` with the point axis split over `devices`
+    (a list of torch devices; it may name one device several times).
+
+    Points (and their matches) split into len(devices) contiguous blocks,
+    block k on devices[k]; the keyframe pyramids and poses are
+    replicated. Each block builds its residuals, Jacobians and Schur
+    partial sums; one sum per Gauss-Newton iteration, onto devices[0],
+    assembles the [K*D, K*D] pose system and the current cost, a second
+    one the trial step's cost; the solve and the accept/reject (a
+    `torch.where`, no host read) run there and every block uses that
+    step. Depth back-substitution stays on each block's device.
+    Returns poses on devices[0] and the idepths of every block,
+    concatenated there. P must divide by len(devices) (pad with
+    point_valid=False lanes). Agrees with the unsharded solve up to f32
+    reduction order (held to 1e-5, tests/test_torch_ba.py); one device
+    gives the unsharded solve exactly."""
+    devices = resolve_devices(devices)
+    n, P = len(devices), uv_ref.shape[0]
+    if P % n:
+        raise ValueError(f"{P} points do not split over {n} devices")
+    if uv_obs is not None and obs_valid is None:
+        obs_valid = torch.ones(uv_obs.shape[:2], dtype=torch.bool,
+                               device=uv_obs.device)
+    shards = []
+    for k, dev in enumerate(devices):
+        sl = slice(k * P // n, (k + 1) * P // n)
+
+        def put(x, sl=sl, dev=dev):
+            return None if x is None else x[sl].to(dev, non_blocking=True)
+
+        def rep(x, dev=dev):
+            return x.to(dev, non_blocking=True)
+
+        shards.append(_Shard(dev, rep(kf_pyrs), rep(kf_q), rep(kf_t),
+                             rep(kf_valid), put(uv_ref), put(idepth0),
+                             put(point_valid), put(uv_obs), put(obs_valid)))
+    return _ba_solve(shards, **ba_kwargs)
+
+
+def hybrid_bundle_adjust_sharded(devices, kf_pyrs, kf_q, kf_t, kf_valid,
+                                 uv_ref, idepth0, point_valid, *,
+                                 cam: Pinhole, num_iters: int = 12,
+                                 coarse_iters: int = 10, level: int = 1,
+                                 **ba_kwargs) -> BAResult:
+    """One round of hybrid BA with the window solve's point axis split
+    over `devices` (`bundle_adjust_window_sharded`): the epipolar matches
+    and their 2-D refinement run on the inputs' device, as in
+    `hybrid_bundle_adjust(rounds=1)`, whose result this equals up to the
+    solve's reduction order. The reference keyframe must sit at index
+    0 (callers roll the ring)."""
+    uv_obs, obs_ok = match_window_points(
+        kf_pyrs[0], kf_q[0], kf_t[0], kf_pyrs, kf_q, kf_t, uv_ref, idepth0,
+        point_valid, cam=cam)
+    uv_obs, obs_ok = refine_matches_2d(
+        kf_pyrs[0], uv_ref, kf_pyrs, uv_obs, obs_ok, search_radius=3,
+        max_shift=24.0)
+    return bundle_adjust_window_sharded(
+        devices, kf_pyrs, kf_q, kf_t, kf_valid, uv_ref, idepth0,
+        point_valid, uv_obs=uv_obs, obs_valid=obs_ok, ref_index=0, cam=cam,
+        num_iters=num_iters, coarse_iters=coarse_iters, level=level,
+        **ba_kwargs)
+
+
+def _ba_solve(shards, *, ref_index: int = 0, cam: Pinhole,
+              num_iters: int = 5, coarse_iters: int = 10, level: int = 1,
+              huber_delta: float = 8.0, depth_prior_weight: float = 50.0,
+              damping: float = 0.1, optimize_poses: bool = True,
+              estimate_affine: bool = True, gradient_weight: float = 0.5,
+              reproj_weight: float = 4.0) -> BAResult:
+    """The window solve over point blocks (`_Shard`s, one or several):
+    the pose state lives on the first block's device."""
+    f32 = torch.float32
+    m = shards[0]
+    dev = m.device
+    K = m.kf_q.shape[0]
+    L, H, W = m.kf_pyrs.shape[1:]
     D = 8 if estimate_affine else 6
+    coarse = min(level + 1, L - 1)
+
+    # Per block: the gauge's samples, the point and frame masks, and the
+    # residual channels.
+    ctx = []
+    for sh in shards:
+        d_ = sh.device
+        iref, iok = bilinear_pyramid(sh.kf_pyrs[ref_index], sh.uv_ref,
+                                     _level(level, d_))
+        pvalid = sh.point_valid & iok & (sh.idepth0 > 1e-4)
+        fmask = sh.kf_valid & (torch.arange(K, device=d_) != ref_index)
+        wmask = fmask.to(f32)[:, None] * pvalid.to(f32)[None, :]
+        channels = _channel_fn(
+            sh.kf_pyrs, sh.uv_ref, sh.kf_q[ref_index], sh.kf_t[ref_index],
+            ref_index, cam, sorted({coarse, level}),
+            estimate_affine=estimate_affine,
+            gradient_weight=gradient_weight, uv_obs=sh.uv_obs,
+            obs_valid=sh.obs_valid, reproj_weight=reproj_weight)
+        ctx.append((iref, pvalid, wmask, channels,
+                    torch.zeros((K, D), dtype=f32, device=d_)))
+
+    fmask = m.kf_valid & (torch.arange(K, device=dev) != ref_index)
     step_clip = torch.cat([torch.full((6,), 0.2, dtype=f32, device=dev),
                            torch.full((1,), 0.1, dtype=f32, device=dev),
                            torch.full((1,), 8.0, dtype=f32, device=dev)])[:D]
-    coarse = min(level + 1, L - 1)
-    channels = _channel_fn(
-        kf_pyrs, uv_ref, ref_q, ref_t, ref_index, cam,
-        sorted({coarse, level}),
-        estimate_affine=estimate_affine, gradient_weight=gradient_weight,
-        uv_obs=uv_obs, obs_valid=obs_valid, reproj_weight=reproj_weight)
-
-    def robust_cost(rr, ww):
-        w = (ww * wmask)[..., None]
-        num = torch.sum(torch.where(
-            w > 0, torch.clamp(torch.abs(rr), max=3 * huber_delta),
-            torch.zeros_like(rr)))
-        return num / torch.clamp(torch.sum(w), min=1.0)
-
     tau0 = torch.zeros((K, D), dtype=f32, device=dev)
-    q, t, d = kf_q, kf_t, idepth0
+    q, t = m.kf_q, m.kf_t
+    ds = [sh.idepth0 for sh in shards]
     g = torch.ones((K,), dtype=f32, device=dev)
     o = torch.zeros((K,), dtype=f32, device=dev)
     lam = torch.full((), damping, dtype=f32, device=dev)
+    KD = K * D
+
+    def on(x, d_):
+        return x.to(d_, non_blocking=True)
+
     for l in [coarse] * coarse_iters + [level] * num_iters:
-        rr, ww, Jt, Jd = _linearize(channels, q, t, g, o, l, d, D)
-        ar = torch.abs(rr)
-        hub = torch.where(ar <= huber_delta, torch.ones_like(rr),
-                          huber_delta / torch.clamp(ar, min=1e-6))
-        w = hub * (ww * wmask)[..., None]               # [K, P, C]
+        lin, packed = [], []
+        for sh, (_, pvalid, wmask, channels, _), d in zip(shards, ctx, ds):
+            d_ = sh.device
+            rr, ww, Jt, Jd = _linearize(channels, on(q, d_), on(t, d_),
+                                        on(g, d_), on(o, d_), l, d, D)
+            ar = torch.abs(rr)
+            hub = torch.where(ar <= huber_delta, torch.ones_like(rr),
+                              huber_delta / torch.clamp(ar, min=1e-6))
+            w = hub * (ww * wmask)[..., None]           # [K, P, C]
 
-        # Frame blocks Hpp [K, D, D], bp [K, D]; point diagonal Hdd [P];
-        # coupling Hpd [K, P, D].
-        WJ = w[..., None] * Jt
-        Hpp = torch.einsum("kpci,kpcj->kij", WJ, Jt)
-        bp = torch.einsum("kpci,kpc->ki", WJ, rr)
-        Hdd = torch.sum(w * Jd * Jd, dim=(0, 2)) + depth_prior_weight
-        bd = (torch.sum(w * Jd * rr, dim=(0, 2))
-              + depth_prior_weight * (d - idepth0))
-        Hpd = torch.sum(WJ * Jd[..., None], dim=2)
+            # Frame blocks Hpp [K, D, D], bp [K, D]; point diagonal Hdd
+            # [P]; coupling Hpd [K, P, D].
+            WJ = w[..., None] * Jt
+            Hpp = torch.einsum("kpci,kpcj->kij", WJ, Jt)
+            bp = torch.einsum("kpci,kpc->ki", WJ, rr)
+            Hdd = torch.sum(w * Jd * Jd, dim=(0, 2)) + depth_prior_weight
+            bd = (torch.sum(w * Jd * rr, dim=(0, 2))
+                  + depth_prior_weight * (d - sh.idepth0))
+            Hpd = torch.sum(WJ * Jd[..., None], dim=2)
 
-        # Schur: S = Hpp - sum_p Hpd^T Hdd^-1 Hpd (block dense across
-        # frames through the shared depths).
-        Hdd_inv = 1.0 / Hdd
-        A = (Hpd * Hdd_inv[None, :, None]).permute(0, 2, 1).reshape(K * D, P)
-        B = Hpd.permute(0, 2, 1).reshape(K * D, P)
-        S = torch.block_diag(*Hpp.unbind(0)) - A @ B.T
-        rhs = bp.reshape(K * D) - (A @ bd)
+            # Schur: S = Hpp - sum_p Hpd^T Hdd^-1 Hpd (block dense across
+            # frames through the shared depths), this block's points.
+            Hdd_inv = 1.0 / Hdd
+            P_ = Hdd.shape[0]
+            A = (Hpd * Hdd_inv[None, :, None]).permute(0, 2, 1).reshape(
+                KD, P_)
+            B = Hpd.permute(0, 2, 1).reshape(KD, P_)
+            S_ = torch.block_diag(*Hpp.unbind(0)) - A @ B.T
+            rhs_ = bp.reshape(KD) - (A @ bd)
+            num, den = _cost_terms(rr, ww, wmask, huber_delta)
+            packed.append(torch.cat([S_.reshape(-1), rhs_, num[None],
+                                     den[None]]))
+            lin.append((Hpd, Hdd_inv, bd))
+        tot = packed[0] if len(packed) == 1 else _sum_on(packed, dev)
+        S = tot[:KD * KD].reshape(KD, KD)
+        rhs = tot[KD * KD:KD * KD + KD]
+        cost_old = tot[-2] / torch.clamp(tot[-1], min=1.0)
         # Adaptive Levenberg damping, then a huge diagonal prior that
         # freezes the gauge and invalid frames.
         S = S + torch.diag(lam * torch.clamp(torch.diagonal(S), min=1e-6))
@@ -572,9 +696,6 @@ def bundle_adjust_window(
         else:
             # Depth-only refinement: exact per-point Newton.
             dtau = tau0
-        # Back-substitute the depths.
-        corr = torch.sum(Hpd * dtau[:, None, :], dim=(0, 2))
-        dd = torch.clamp(-(bd + corr) * Hdd_inv, -0.2, 0.2)
 
         dT = SE3.exp(dtau[:, :6])
         q_new = quat_mul(q, dT.q)
@@ -584,34 +705,59 @@ def bundle_adjust_window(
             o_new = torch.clamp(o + dtau[:, 7], -96.0, 96.0)
         else:
             g_new, o_new = g, o
-        d_new = torch.clamp(torch.where(pvalid, d + dd, d), 1e-3, 10.0)
 
-        # Keep the step only if the robust cost does not increase (the
-        # cost at the current state is the jvp's primal output).
-        cost_old = robust_cost(rr, ww)
-        cost_new = robust_cost(*channels(q_new, t_new, g_new, o_new, l, tau0,
-                                         d_new))
+        # Back-substitute the depths on each block's device, and the
+        # trial step's cost (the cost at the current state is the jvp's
+        # primal output). Keep the step only if it does not increase.
+        d_new, trial = [], []
+        for sh, c_, d, lin_ in zip(shards, ctx, ds, lin):
+            _, pvalid, wmask, channels, tau0_ = c_
+            Hpd, Hdd_inv, bd = lin_
+            d_ = sh.device
+            corr = torch.sum(Hpd * on(dtau, d_)[:, None, :], dim=(0, 2))
+            dd = torch.clamp(-(bd + corr) * Hdd_inv, -0.2, 0.2)
+            dn = torch.clamp(torch.where(pvalid, d + dd, d), 1e-3, 10.0)
+            d_new.append(dn)
+            num, den = _cost_terms(
+                *channels(on(q_new, d_), on(t_new, d_), on(g_new, d_),
+                          on(o_new, d_), l, tau0_, dn), wmask, huber_delta)
+            trial.append(torch.stack([num, den]))
+        tr = trial[0] if len(trial) == 1 else _sum_on(trial, dev)
+        cost_new = tr[0] / torch.clamp(tr[1], min=1.0)
         accept = cost_new <= cost_old
         q = torch.where(accept, q_new, q)
         t = torch.where(accept, t_new, t)
         g = torch.where(accept, g_new, g)
         o = torch.where(accept, o_new, o)
-        d = torch.where(accept, d_new, d)
+        ds = [torch.where(on(accept, sh.device), dn, d)
+              for sh, dn, d in zip(shards, d_new, ds)]
         lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 8.0),
                           1e-4, 1e4)
 
     # Final intensity cost at the refined poses, depths and exposures.
-    uv_j, front = _warp_uv(torch.zeros((K, 1, 6), dtype=f32, device=dev), d,
-                           uv_ref, q[:, None], t[:, None], ref_q, ref_t, cam)
-    val, ok = bilinear_pyramid_batched(kf_flat, rows, (L, H, W), uv_j,
-                                       lv_final)
-    ww = (front & ok).to(f32)
-    rr = (val - (g[:, None] * iref + o[:, None])) * ww
-    w = ww * wmask
-    cost = (torch.sum(torch.where(w > 0, torch.clamp(torch.abs(rr),
-                                                     max=3 * huber_delta),
-                                  torch.zeros_like(rr)))
-            / torch.clamp(torch.sum(w), min=1.0))
-    return BAResult(q=q, t=t, idepths=d, final_cost=cost,
-                    n_valid=torch.sum(pvalid.to(torch.int32)), gains=g,
-                    offsets=o)
+    terms, n_valid = [], []
+    for sh, (iref, pvalid, wmask, _, _), d in zip(shards, ctx, ds):
+        d_ = sh.device
+        qd, td, gd, od = (on(x, d_) for x in (q, t, g, o))
+        uv_j, front = _warp_uv(torch.zeros((K, 1, 6), dtype=f32, device=d_),
+                               d, sh.uv_ref, qd[:, None], td[:, None],
+                               sh.kf_q[ref_index], sh.kf_t[ref_index], cam)
+        val, ok = bilinear_pyramid_batched(
+            sh.kf_pyrs.reshape(K, -1), torch.arange(K, device=d_),
+            (L, H, W), uv_j, _level(level, d_))
+        ww = (front & ok).to(f32)
+        rr = (val - (gd[:, None] * iref + od[:, None])) * ww
+        w = ww * wmask
+        num = torch.sum(torch.where(w > 0, torch.clamp(torch.abs(rr),
+                                                       max=3 * huber_delta),
+                                    torch.zeros_like(rr)))
+        terms.append(torch.stack([num, torch.sum(w)]))
+        n_valid.append(torch.sum(pvalid.to(torch.int32)))
+    tot = terms[0] if len(terms) == 1 else _sum_on(terms, dev)
+    cost = tot[0] / torch.clamp(tot[1], min=1.0)
+    return BAResult(
+        q=q, t=t, idepths=(ds[0] if len(ds) == 1 else
+                           torch.cat([on(x, dev) for x in ds])),
+        final_cost=cost,
+        n_valid=n_valid[0] if len(n_valid) == 1 else _sum_on(n_valid, dev),
+        gains=g, offsets=o)

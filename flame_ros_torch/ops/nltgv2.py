@@ -122,11 +122,83 @@ def _precond_steps(top: GraphTopology):
     return sigma, tau_x, tau_w
 
 
+class _SweepConsts(NamedTuple):
+    """Loop-invariant operands of one primal-dual sweep (`_sweep`)."""
+    i: torch.Tensor          # [E] tail vertex of each edge (gather index)
+    j: torch.Tensor          # [E] head vertex
+    ev: torch.Tensor         # [E, 1] edge mask
+    e: torch.Tensor          # [V, D] incident edge ids
+    sigma: torch.Tensor      # [E, 3] dual steps
+    tau_xw: torch.Tensor     # [V, 3] primal steps (x, w1, w2)
+    thr: torch.Tensor        # [V] L1 prox threshold tau_x * lam
+    vm3: torch.Tensor        # [V, 1] vertex mask
+    live_sgn: torch.Tensor   # [V, D] incidence sign on live lanes
+    tail: torch.Tensor       # [V, D] 1 where the vertex is the tail
+    head: torch.Tensor       # [V, D, 1] 1 where the vertex is the head
+    dp_inc: torch.Tensor     # [V, D, 2] dp of each incident edge
+    edge_k1w: torch.Tensor   # [E, 3] (alpha, alpha * dp)
+    beta: torch.Tensor       # [E]
+    z: torch.Tensor          # [V] data anchors
+
+
+def _sweep_consts(top: GraphTopology, z, lam, vtx_valid, dt) -> _SweepConsts:
+    """The sweep's loop-invariant operands from a topology whose
+    incidence lists cover the vertices being updated (all of them, or a
+    part's owned vertices in `parallel/spatial_pd.py`)."""
+    if top.inc_edges is None:
+        raise ValueError("pd_iterate needs the incidence lists "
+                         "(GraphTopology.inc_edges / inc_sign)")
+    sigma, tau_x, tau_w = _precond_steps(top)
+    e = top.inc_edges.long()
+    sgn = top.inc_sign
+    live = (sgn != 0).to(dt)
+    tail = (sgn > 0).to(dt)
+    return _SweepConsts(
+        i=top.edges[:, 0].long(), j=top.edges[:, 1].long(),
+        ev=top.edge_valid[:, None].to(dt), e=e, sigma=sigma,
+        tau_xw=torch.cat([tau_x[:, None], tau_w], -1), thr=tau_x * lam,
+        vm3=vtx_valid.to(dt)[:, None], live_sgn=live * sgn, tail=tail,
+        head=(live - tail)[..., None], dp_inc=top.dp[e] * live[..., None],
+        edge_k1w=torch.cat([top.alpha[:, None],
+                            top.alpha[:, None] * top.dp], -1),
+        beta=top.beta, z=z)
+
+
+def _sweep(c: _SweepConsts, theta: float, xw, xwb_src, q):
+    """One preconditioned primal-dual sweep (packed incidence-gather
+    formulation of nltgv2.py:252-341). xw [V, 3] packed (x, w1, w2) of
+    the updated vertices; xwb_src the extragradient iterate the edges
+    gather from (xwb itself, or a part's owned vertices followed by its
+    halo); q [E, 3]. Returns (xw, xwb, q)."""
+    pi = xwb_src[c.i]
+    pj = xwb_src[c.j]
+    k1 = (c.edge_k1w[:, 0] * (pi[:, 0] - pj[:, 0])
+          - c.edge_k1w[:, 1] * pi[:, 1] - c.edge_k1w[:, 2] * pi[:, 2])
+    kw = c.beta[:, None] * (pi[:, 1:] - pj[:, 1:])
+    Kx = torch.cat([k1[:, None], kw], -1)
+    q = torch.clamp(q + c.sigma * Kx, -1.0, 1.0) * c.ev
+    # Adjoint via one packed vertex gather.
+    Pe = torch.cat([(c.edge_k1w[:, 0] * q[:, 0])[:, None],
+                    c.beta[:, None] * q[:, 1:]], -1)
+    Pv = Pe[c.e]                                  # [V, D, 3]
+    gx = torch.sum(c.live_sgn * Pv[..., 0], -1)
+    gw = torch.sum(c.tail[..., None] * (-Pv[..., 0:1] * c.dp_inc
+                                        + Pv[..., 1:])
+                   - c.head * Pv[..., 1:], dim=1)
+    g = torch.cat([gx[:, None], gw], -1)
+    xw_desc = xw - c.tau_xw * g
+    r = xw_desc[:, 0] - c.z
+    x_new = c.z + torch.sign(r) * torch.clamp(torch.abs(r) - c.thr, min=0.0)
+    xw_new = torch.cat([x_new[:, None], xw_desc[:, 1:]], -1)
+    xw_new = c.vm3 * xw_new + (1 - c.vm3) * xw
+    xwb = xw_new + theta * (xw_new - xw)
+    return xw_new, xwb, q
+
+
 def pd_iterate(state: GraphState, top: GraphTopology, z, lam, vtx_valid,
                *, num_iters: int = 10, theta: float = 1.0,
                gate_tol: float = 0.0):
-    """Run up to `num_iters` primal-dual sweeps (packed incidence-gather
-    formulation of nltgv2.py:252-341).
+    """Run up to `num_iters` primal-dual sweeps (`_sweep`).
 
     Steps are the diagonal preconditioners of `_precond_steps` (the
     engine's only mode; the JAX package's fixed step_x/step_q mode is not
@@ -135,54 +207,8 @@ def pd_iterate(state: GraphState, top: GraphTopology, z, lam, vtx_valid,
     gate_tol > 0 stops
     updating once a sweep's max |x change| falls below it (no host sync:
     the remaining sweeps run and are discarded by a device flag)."""
-    if top.inc_edges is None:
-        raise ValueError("pd_iterate needs the incidence lists "
-                         "(GraphTopology.inc_edges / inc_sign)")
     dt = state.x.dtype
-    sigma, tau_x, tau_w = _precond_steps(top)
-
-    vmask = vtx_valid.to(dt)
-    i = top.edges[:, 0].long()
-    j = top.edges[:, 1].long()
-    ev = top.edge_valid[:, None].to(dt)
-    e = top.inc_edges.long()
-    sgn = top.inc_sign
-    live = (sgn != 0).to(dt)
-    tail = (sgn > 0).to(dt)
-    dp_inc = top.dp[e] * live[..., None]
-    edge_k1w = torch.cat([top.alpha[:, None], top.alpha[:, None] * top.dp],
-                         -1)
-    tau_xw = torch.cat([tau_x[:, None], tau_w], -1)
-    thr = tau_x * lam
-    vm3 = vmask[:, None]
-    live_sgn = live * sgn
-    head = (live - tail)[..., None]
-
-    def sweep(xw, xwb, q):
-        pi = xwb[i]
-        pj = xwb[j]
-        k1 = (edge_k1w[:, 0] * (pi[:, 0] - pj[:, 0])
-              - edge_k1w[:, 1] * pi[:, 1] - edge_k1w[:, 2] * pi[:, 2])
-        kw = top.beta[:, None] * (pi[:, 1:] - pj[:, 1:])
-        Kx = torch.cat([k1[:, None], kw], -1)
-        q = torch.clamp(q + sigma * Kx, -1.0, 1.0) * ev
-        # Adjoint via one packed vertex gather.
-        Pe = torch.cat([(top.alpha * q[:, 0])[:, None],
-                        top.beta[:, None] * q[:, 1:]], -1)
-        Pv = Pe[e]                                    # [V, D, 3]
-        gx = torch.sum(live_sgn * Pv[..., 0], -1)
-        gw = torch.sum(tail[..., None] * (-Pv[..., 0:1] * dp_inc
-                                          + Pv[..., 1:])
-                       - head * Pv[..., 1:], dim=1)
-        g = torch.cat([gx[:, None], gw], -1)
-        xw_desc = xw - tau_xw * g
-        r = xw_desc[:, 0] - z
-        x_new = z + torch.sign(r) * torch.clamp(torch.abs(r) - thr, min=0.0)
-        xw_new = torch.cat([x_new[:, None], xw_desc[:, 1:]], -1)
-        xw_new = vm3 * xw_new + (1 - vm3) * xw
-        xwb = xw_new + theta * (xw_new - xw)
-        return xw_new, xwb, q
-
+    c = _sweep_consts(top, z, lam, vtx_valid, dt)
     xw = torch.cat([state.x[:, None], state.w], -1)
     xwb = torch.cat([state.x_bar[:, None], state.w_bar], -1)
     q = state.q
@@ -191,7 +217,7 @@ def pd_iterate(state: GraphState, top: GraphTopology, z, lam, vtx_valid,
                            device=state.x.device)
         for _ in range(num_iters):
             active = delta > gate_tol
-            xw_n, xwb_n, q_n = sweep(xw, xwb, q)
+            xw_n, xwb_n, q_n = _sweep(c, theta, xw, xwb, q)
             d_n = torch.max(torch.abs(xw_n[:, 0] - xw[:, 0]))
             xw = torch.where(active, xw_n, xw)
             xwb = torch.where(active, xwb_n, xwb)
@@ -199,7 +225,7 @@ def pd_iterate(state: GraphState, top: GraphTopology, z, lam, vtx_valid,
             delta = torch.where(active, d_n, delta)
     else:
         for _ in range(num_iters):
-            xw, xwb, q = sweep(xw, xwb, q)
+            xw, xwb, q = _sweep(c, theta, xw, xwb, q)
     return GraphState(x=xw[:, 0], w=xw[:, 1:], q=q, x_bar=xwb[:, 0],
                       w_bar=xwb[:, 1:])
 

@@ -42,8 +42,13 @@ bit for bit.
 Launch counts: each wrapper has a `launches` integer that counts its
 kernel launches, one per call (the batched wrapper also counts the images
 its launches covered, `images`). The kernels also count their launches on
-the device (`work_counters`), so a run shows which kernel did the raster
-work without reading the wrappers.
+the device (`work_counters`, one counter per card), so a run shows which
+kernel did the raster work without reading the wrappers.
+
+A ctypes launch runs on the calling thread's current CUDA device, so
+each wrapper makes the output's card current around its launch
+(`torch.cuda.device(out.device)`): a tensor on `cuda:1` while `cuda:0`
+is current launches on `cuda:1`, on that card's current stream.
 """
 from __future__ import annotations
 
@@ -543,10 +548,11 @@ def rasterize_tri_ids_v2(vtx_pos, tris, tri_valid, *, height: int,
     _contiguous(C=C, bounds=bounds)
     lib = _get_lib()
     work = work_counters(out.device)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = lib.raster_v2_launch(
-        C.data_ptr(), tris.shape[0], bounds.data_ptr(), B, out.data_ptr(),
-        height, width, row_tile, work.data_ptr(), stream)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.raster_v2_launch(
+            C.data_ptr(), tris.shape[0], bounds.data_ptr(), B, out.data_ptr(),
+            height, width, row_tile, work.data_ptr(), stream)
     rasterize_tri_ids_v2.launches += 1
     if err != 0:
         raise RuntimeError(f"raster_v2 launch failed: cudaError {err}")
@@ -572,11 +578,12 @@ def rasterize_tri_ids_v4(vtx_pos, tris, tri_valid, *, height: int,
     _contiguous(C=C, lo_pos=lo_pos, hi_pos=hi_pos, counts=counts)
     lib = _get_lib()
     work = work_counters(out.device)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = lib.raster_v4_launch(
-        C.data_ptr(), tris.shape[0], lo_pos.data_ptr(), hi_pos.data_ptr(),
-        counts.data_ptr(), out.data_ptr(), height, width, row_tile,
-        work.data_ptr(), stream)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.raster_v4_launch(
+            C.data_ptr(), tris.shape[0], lo_pos.data_ptr(), hi_pos.data_ptr(),
+            counts.data_ptr(), out.data_ptr(), height, width, row_tile,
+            work.data_ptr(), stream)
     rasterize_tri_ids_v4.launches += 1
     if err != 0:
         raise RuntimeError(f"raster_v4 launch failed: cudaError {err}")
@@ -606,11 +613,12 @@ def rasterize_tri_ids_v4_batched(vtx_pos, tris, tri_valid, *, height: int,
     _contiguous(C=C, lo_pos=lo_pos, hi_pos=hi_pos, counts=counts)
     lib = _get_lib()
     work = work_counters(out.device)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = lib.raster_v4_batched_launch(
-        C.data_ptr(), S, T, lo_pos.data_ptr(), hi_pos.data_ptr(),
-        counts.data_ptr(), out.data_ptr(), height, width, row_tile,
-        work.data_ptr(), stream)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.raster_v4_batched_launch(
+            C.data_ptr(), S, T, lo_pos.data_ptr(), hi_pos.data_ptr(),
+            counts.data_ptr(), out.data_ptr(), height, width, row_tile,
+            work.data_ptr(), stream)
     rasterize_tri_ids_v4_batched.launches += 1
     rasterize_tri_ids_v4_batched.images += S
     if err != 0:
@@ -638,11 +646,12 @@ def rasterize_tri_ids_v3(vtx_pos, tris, tri_valid, *, height: int,
     _contiguous(C=C, lo_blk=lo_blk, nblk_s=nblk_s, long2=long2)
     lib = _get_lib()
     work = work_counters(out.device)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = lib.raster_v3_launch(
-        C.data_ptr(), tris.shape[0], lo_blk.data_ptr(), nblk_s.data_ptr(),
-        long2.data_ptr(), B, out.data_ptr(), height, width, row_tile,
-        work.data_ptr(), stream)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.raster_v3_launch(
+            C.data_ptr(), tris.shape[0], lo_blk.data_ptr(), nblk_s.data_ptr(),
+            long2.data_ptr(), B, out.data_ptr(), height, width, row_tile,
+            work.data_ptr(), stream)
     rasterize_tri_ids_v3.launches += 1
     if err != 0:
         raise RuntimeError(f"raster_v3 launch failed: cudaError {err}")

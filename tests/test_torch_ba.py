@@ -26,6 +26,10 @@ through both packages.
 - `discrete_pose_presearch` from poses 0.05 off: q and t to 1e-5 (the
   same argmin moves), and `hybrid_bundle_adjust(rounds=3,
   pre_search=True)`: as `bundle_adjust_window`.
+- The point-sharded solver: `hybrid_bundle_adjust_sharded` over two CPU
+  devices against the unsharded one-round hybrid (1e-5) and against the
+  JAX package's on a two-device mesh, and the nodelet's BA routed
+  through it by `pose_tracking.ba_sharded=True`.
 """
 import jax
 import jax.numpy as jnp
@@ -299,3 +303,98 @@ def test_presearch_and_hybrid_match_jax(win):
     t = tba.hybrid_bundle_adjust(*_t(off, *ARGS), cam=TCAM, rounds=3,
                                  pre_search=True, **LIVE)
     _check_ba(t, j, "hybrid rounds=3")
+
+
+def test_sharded_ba_matches_unsharded_and_jax(win):
+    """`hybrid_bundle_adjust_sharded` with the 64 points split over two
+    CPU devices (["cpu", "cpu"]) against the port's unsharded one-round
+    hybrid (`rounds=1`, the nodelet's call) and against the JAX package's
+    `hybrid_bundle_adjust_sharded` on a two-device ("feat",) mesh, the
+    same numpy inputs. Against the unsharded solve the two partial sums
+    reduce in another order than the one einsum: q, t, idepths and gains
+    to 1e-5 (the JAX test holds q and t to 2e-4, idepths to 5e-4), the
+    final cost to 1e-5 relative, n_valid exactly, and the exposure
+    offsets (gray levels, up to ~17 here; the JAX test does not hold
+    them) to 1e-4 of their largest magnitude: measured 4.2e-5, the offset
+    columns being the widest-scaled of the Jacobi-normalized system.
+    Against JAX: `_check_ba`'s bounds. One device gives the unsharded
+    solve bit for bit."""
+    from jax.sharding import Mesh
+    targs = _t(win, *ARGS)
+    plain = tba.hybrid_bundle_adjust(*targs, cam=TCAM, rounds=1, **LIVE)
+    two = tba.hybrid_bundle_adjust_sharded(["cpu", "cpu"], *targs,
+                                           cam=TCAM, **LIVE)
+    for k in ("q", "t", "idepths", "gains"):
+        np.testing.assert_allclose(getattr(two, k).numpy(),
+                                   getattr(plain, k).numpy(), rtol=0,
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(float(two.final_cost),
+                               float(plain.final_cost), rtol=1e-5)
+    scale = max(1.0, float(plain.offsets.abs().max()))
+    np.testing.assert_allclose(two.offsets.numpy() / scale,
+                               plain.offsets.numpy() / scale, rtol=0,
+                               atol=1e-4)
+    assert int(two.n_valid) == int(plain.n_valid)
+    assert np.abs(two.q.numpy() - win["q"]).max() > 1e-5   # it moved
+    one = tba.hybrid_bundle_adjust_sharded(["cpu"], *targs, cam=TCAM,
+                                           **LIVE)
+    for a, b in zip(one, plain):
+        assert torch.equal(a, b)
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("feat",))
+    j = jba.hybrid_bundle_adjust_sharded(mesh, *_j(win, *ARGS), cam=JCAM,
+                                         **LIVE)
+    _check_ba(two, j, "sharded vs JAX sharded")
+    with pytest.raises(ValueError, match="split"):
+        tba.hybrid_bundle_adjust_sharded(["cpu"] * 3, *targs, cam=TCAM,
+                                         **LIVE)
+
+
+def test_nodelet_routes_ba_through_sharded_solver(win, monkeypatch):
+    """pose_tracking.ba_sharded=True routes the nodelet's windowed BA
+    through `hybrid_bundle_adjust_sharded` (a spy, as
+    tests/test_nodelet.py:194), over the one CPU device, and the refined
+    keyframe poses equal ba_sharded=False's bit for bit. The window is
+    this file's, written into the engine's state (the 60 points owned by
+    keyframe slot 0, the "most_owned" anchor)."""
+    from flame_ros_torch.config import FlameParams
+    from flame_ros_torch.frontends import nodelet as nodelet_mod
+    calls = []
+    orig = nodelet_mod.hybrid_bundle_adjust_sharded
+
+    def spy(devices, *a, **kw):
+        calls.append(list(devices))
+        return orig(devices, *a, **kw)
+
+    monkeypatch.setattr(nodelet_mod, "hybrid_bundle_adjust_sharded", spy)
+    poses = {}
+    for sharded in (False, True):
+        params = FlameParams.from_dict({
+            "engine": {"max_features": 256, "max_keyframes": K},
+            "pose_tracking": {"ba_sharded": sharded, "ba_budget": P,
+                              "ba_anchor": "most_owned"}})
+        node = nodelet_mod.FlameNodelet(TCAM, params, pose_source="tracking",
+                                        ba_refine=True, device="cpu")
+        st = node.engine.state
+        n = st.feat.valid.shape[0]
+        uv = torch.zeros(n, 2)
+        uv[:P] = torch.from_numpy(win["uv"])
+        mu = torch.full((n,), 0.5)
+        mu[:P] = torch.from_numpy(win["d0"])
+        node.engine.state = st._replace(
+            kf_pyrs=torch.from_numpy(win["pyrs"]),
+            kf_q=torch.from_numpy(win["q"]), kf_t=torch.from_numpy(win["t"]),
+            kf_valid=torch.ones(K, dtype=torch.bool),
+            kf_ids=torch.tensor(KF, dtype=st.kf_ids.dtype),
+            feat=st.feat._replace(
+                uv_ref=uv, mu=mu, valid=torch.arange(n) < P,
+                kf_idx=torch.zeros(n, dtype=st.feat.kf_idx.dtype)))
+        node._ba_refine()
+        assert len(node.ba_costs) == 1
+        poses[sharded] = (node.engine.state.kf_q, node.engine.state.kf_t,
+                          node.ba_costs[0])
+        node.engine.shutdown()
+    assert calls == [[torch.device("cpu")]]
+    assert torch.equal(poses[True][0], poses[False][0])
+    assert torch.equal(poses[True][1], poses[False][1])
+    assert poses[True][2] == poses[False][2]
+    assert not torch.equal(poses[True][0], torch.from_numpy(win["q"]))

@@ -5,12 +5,15 @@
   getters, the nodelet and the server, and tracking mode (the tracker,
   the ring relocalization, the pose graph and windowed bundle adjustment
   through `run_offline_tracking` with an occlusion, the stage profiler,
-  the stress knobs, ATE/RPE) leaves "jax" out of sys.modules
+  the stress knobs, ATE/RPE), the many-stream runner on one device, on
+  two stream groups and on two spatial parts, and the multi-process
+  worker's module, leaves "jax" out of sys.modules
   (checked in a fresh interpreter, since the test process itself
   imports JAX), and no file of it names either in an import;
 - importing it turns TF32 off for matmul and cuDNN (the reference pins
   geometry to full f32);
-- its entry points run on the card unless asked for the CPU, and raise
+- its entry points (the multi-process worker `parallel/dist_e2e.py`
+  among them) run on the card unless asked for the CPU, and raise
   rather than fall back to the CPU when there is no card.
 """
 import ast
@@ -112,6 +115,19 @@ for i in range(3):
 runner.drain_topologies()
 runner.shutdown()
 assert len(runner.get_meshes()) == 2
+# Device lists: two stream groups, and the spatial partition over two
+# parts, on the CPU; the point-sharded BA and the multi-process worker.
+import flame_ros_torch.parallel.dist_e2e
+from flame_ros_torch.models.ba import hybrid_bundle_adjust_sharded
+sparams = FlameParams.from_dict({"engine": {"max_features": 128,
+                                            "max_keyframes": 4,
+                                            "spatial_parts": 2}})
+for mesh, p in ((["cpu", "cpu"], params), ([["cpu", "cpu"]], sparams)):
+    runner = MultiStreamRunner(cam, 2, params=p, mesh=mesh)
+    for i in range(3):
+        f = (0.0, i, SE3(seq.poses.q[i], seq.poses.t[i]), seq.images[i])
+        assert runner.update([f, f])
+    assert len(runner.get_meshes()) == 2
 assert render_debug_images(eng, seq.images[2].numpy())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flame_ros_tpu"))
@@ -174,6 +190,18 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from flame_ros_torch.parallel.multi_stream import MultiStreamRunner
     with pytest.raises(RuntimeError, match="CUDA"):
         MultiStreamRunner(QVGA, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiStreamRunner(QVGA, 2, mesh=["cuda:0", "cuda:0"])
+    from flame_ros_torch.frontends.nodelet import main as nodelet_main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nodelet_main(["--fx", "262.5", "--fy", "262.5", "--cx", "159.5",
+                      "--cy", "119.5", "--width", "320", "--height", "240",
+                      "--port", "0"])
+    from flame_ros_torch.parallel import dist_e2e
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dist_e2e.cli(["0", "2", "29500", "13"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dist_e2e.cli(["0", "2", "29500", "13", "--spatial"])
     # Explicit CPU works.
     assert Flame(QVGA.width, QVGA.height, cam=QVGA,
                  device="cpu").device.type == "cpu"

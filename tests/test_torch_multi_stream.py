@@ -213,7 +213,9 @@ def test_checkpoint_from_jax_runner(seq, jax_run, tmp_path):
     """A checkpoint the JAX runner wrote after frame 6, loaded by the
     port's runner and run on to frame 8, against the JAX runner run on;
     the port's own checkpoint is published atomically and loads back bit
-    for bit; a runner with other capacities refuses it."""
+    for bit; a runner with other capacities refuses it. A device list
+    mixing CPU and CUDA, and spatial_parts > 1 without a part layout,
+    raise."""
     r = _runner()
     r.load_checkpoint(jax_run["ckpt"])
     assert (r._frame_count, r._num_poseframes) == (CKPT_AT, 1)
@@ -236,9 +238,13 @@ def test_checkpoint_from_jax_runner(seq, jax_run, tmp_path):
         device="cpu")
     with pytest.raises(ValueError, match="capacities"):
         other.load_checkpoint(fn)
-    with pytest.raises(ValueError, match="Do not port"):
+    # Device lists: one kind of device, and the spatial partition only on
+    # a part layout (tests/test_multi_stream.py:245).
+    with pytest.raises(ValueError, match="mixes CPU and CUDA"):
+        tms.MultiStreamRunner(TCAM, S, mesh=["cpu", "cuda:0"], device="cpu")
+    with pytest.raises(ValueError, match="device list"):
         tms.MultiStreamRunner(TCAM, S, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="Do not port"):
+    with pytest.raises(ValueError, match="part layout"):
         tms.MultiStreamRunner(TCAM, S, device="cpu", params=TParams.from_dict(
             {"engine": {"spatial_parts": 2}}))
 

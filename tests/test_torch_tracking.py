@@ -153,14 +153,19 @@ def test_track_gate_cases():
     assert not node._track_ok(_result(0.0, 0, 0))            # degenerate
     assert not node._track_ok(_result(10.0, 300, 1500))      # few inliers
     assert not node._track_ok(_result(float("nan"), 1000, 1500))
-    # Bundle adjustment solves on the engine's device; the point-sharded
-    # solver is not part of the port.
-    assert FlameNodelet(TCAM, FlameParams(), pose_source="tracking",
-                        ba_refine=True, device="cpu").ba_refine
+    # Bundle adjustment: unsharded at the default budget (the JAX rule
+    # shards at >= 16384 points over >= 2 cards; the CPU is one device);
+    # ba_sharded=True builds a nodelet whose solve is point-sharded, over
+    # the one CPU device here.
+    node = FlameNodelet(TCAM, FlameParams(), pose_source="tracking",
+                        ba_refine=True, device="cpu")
+    assert node.ba_refine and node.ba_devices(256) is None
+    assert node.ba_devices(16384) is None
     sharded = FlameParams.from_dict({"pose_tracking": {"ba_sharded": True}})
-    with pytest.raises(ValueError, match="Do not port"):
-        FlameNodelet(TCAM, sharded, pose_source="tracking", ba_refine=True,
-                     device="cpu")
+    node = FlameNodelet(TCAM, sharded, pose_source="tracking",
+                        ba_refine=True, device="cpu")
+    assert node.ba_refine
+    assert node.ba_devices(256) == [torch.device("cpu")]
 
 
 def test_profile_stages_refused():

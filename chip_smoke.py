@@ -128,7 +128,26 @@ Phases, each printed as one line:
    run, and a run killed after its frame-7 shards restarted from them to
    the uninterrupted payload; a failed rank fails the phase. Each layout
    prints ms per update p50/p95, aggregate frames/s, launches and busy
-   ms beside the card's name and power limit.
+   ms beside the card's name and power limit;
+13. the last modules: (a) the feature-axis layout (`make_mesh(
+   stream_axis=1)`, `parallel/feat_shard.py`), S = 2 with each stream's
+   lanes over F = 2 and 4 blocks on cuda:0 named F times, 13 frames of
+   phase 12's streams: every state leaf equal to the plain runner's bit
+   for bit, the stats within 1e-5 relative (split cost sums), one
+   batched v4 launch per update, no host sync in a feat step, ms per
+   update, launches and busy ms beside the plain runner's; (b)
+   `parallel/dist_smoke.py` as two gloo ranks sharing the card, the
+   feature axis across them: both print DIST_OK with the coverage of the
+   single-process plain step exactly; (c) phase 4's 60 frames with
+   compute_dtype="bfloat16" and (d) with nltgv2_adjoint="matmul", each
+   through phase 4's checks (health, v4 on every frame and checked
+   against its plain version) and within JAX_BAND of JAX_BF16_VGA /
+   JAX_MATMUL_VGA, ms/frame beside a rerun of phase 4 in the same
+   place (its digits equal to phase 4's); the epipolar update timed
+   with f32 and bf16 gathers, and the NLTGV2 sweep with the gather and
+   the matmul adjoint, on the final state (CUDA-event medians with the
+   host's issue, launches and card-busy ms by the profiler), the matmul
+   sweep checked to make no host sync.
 
 Any failure exits non-zero. The line before the last is the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`; before
@@ -206,6 +225,17 @@ JAX_TRACK_BA_VGA = {"frames": 60, "idepth_rmse": 0.05408, "recall": 0.7722,
                     "ate_rmse_sim3": 0.02649, "rpe_trans_rmse": 0.00788,
                     "rpe_rot_rmse_deg": 0.1603, "track_failed_frames": 0,
                     "relocalizations": 0, "ba_solves": 7}
+# The JAX package on the CPU over the phase-4 frames (the port's renderer)
+# with bf16 epipolar gathers, and with the matmul NLTGV2 adjoint:
+#   JAX_PLATFORMS=cpu python scripts/jax_option_reference.py \
+#       --option bfloat16|matmul
+# (33 s and 37 s on the CPU; `--option none` gives 0.04437277, the f32
+# gather run). Phase 13 (c) and (d) hold the port to each within
+# JAX_BAND.
+JAX_BF16_VGA = {"idepth_rmse": 0.0444833, "recall": 0.7385114,
+                "coverage": 0.8503646}
+JAX_MATMUL_VGA = {"idepth_rmse": 0.0443720, "recall": 0.7386841,
+                  "coverage": 0.8501270}
 OCCLUDED = (24, 30)
 # tests/test_tracking_recovery.py:141-142: a 7-frame occlusion fails at
 # least its 7 frames and recovers within 8 more.
@@ -2120,6 +2150,237 @@ def multi_device_path(seq, params, cam, dev, out, node9, stats9, smi,
           profiled_calls=len(prof_s))
 
 
+def dist_smoke_workers(dev, out):
+    """Phase 13 (b): `parallel/dist_smoke.py` as two gloo ranks sharing
+    the card (the feature axis across them), beside the single-process
+    plain step. Every process is stopped before this returns."""
+    import socket
+    from flame_ros_torch.parallel import dist_smoke
+    sk = socket.socket()
+    sk.bind(("127.0.0.1", 0))
+    port = str(sk.getsockname()[1])
+    sk.close()
+    on = ["--device", "cpu"] if dev.type == "cpu" else []
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "flame_ros_torch.parallel.dist_smoke",
+         str(r), "2", port, *on], cwd=REPO, env=dict(os.environ,
+                                                     PYTHONPATH=REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in (0, 1)]
+    try:
+        single = dist_smoke.single_coverage(dev)
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    lines = []
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        ok = [x for x in o.splitlines() if x.startswith(f"DIST_OK pid={r} ")]
+        assert p.returncode == 0 and ok, f"rank {r}: {o[-2000:]}"
+        lines.append(ok[0])
+    covs = [float(x.split("cov=")[1]) for x in lines]
+    assert all(c == single[0] for c in covs + single), (covs, single)
+    return dict(lines=lines, single_process_coverage=single,
+                seconds=time.perf_counter() - t0)
+
+
+def last_modules_path(seq, ms4, res4, params, cam, dev, out, smi):
+    """Phase 13: the feature-axis layout, the cross-process feature axis,
+    the bf16 epipolar gathers and the matmul NLTGV2 adjoint. ms4 and
+    res4: phase 4's steady host ms per frame and its RunResult."""
+    import numpy as np
+    import torch
+    from flame_ros_torch.geometry.se3 import SE3
+    from flame_ros_torch.models.engine import (Flame, _epipolar_step,
+                                               _smooth_pd_setup,
+                                               state_leaves)
+    from flame_ros_torch.ops import nltgv2 as reg_ops
+    from flame_ros_torch.ops import raster_cuda as rc
+    from flame_ros_torch.ops.pyramid import build_pyramid
+    from flame_ros_torch.parallel import feat_shard
+    from flame_ros_torch.parallel import multi_stream as ms_mod
+    from flame_ros_torch.parallel.multi_stream import MultiStreamRunner
+    t_phase = time.perf_counter()
+    imgs = torch.clamp(seq.images, 0, 255).to(torch.uint8).cpu().numpy()
+    seq_np = (imgs, seq.depths.cpu().numpy(), seq.poses.q.cpu().numpy(),
+              seq.poses.t.cpu().numpy(), np.asarray(seq.timestamps))
+    n, S = 13, 2
+
+    def drive(r):
+        t_upd, rows = [], []
+        for i in range(n):
+            frames, _ = ms_frames(seq_np, i, S, SE3)
+            t0 = time.perf_counter()
+            r.update(frames)
+            rows.append(r.flush_stats())
+            t_upd.append((time.perf_counter() - t0) * 1e3)
+        return np.asarray(t_upd), rows
+
+    def timing(ms_arr, r):
+        steady = ms_arr[3:]
+        frames, _ = ms_frames(seq_np, n, S, SE3)
+        ev, busy = device_events(lambda: r.update(frames))
+        return {"ms_per_update_p50": float(np.percentile(steady, 50)),
+                "ms_per_update_p95": float(np.percentile(steady, 95)),
+                "aggregate_frames_per_s": float(
+                    S * len(steady) / (steady.sum() / 1e3)),
+                "launches_per_update": ev, "busy_ms_per_update": busy}
+
+    # (a) the feature-axis layout on one card -------------------------------
+    plain = MultiStreamRunner(cam, S, params=params, device=dev)
+    with vmap_fallback_errors():
+        p_ms, p_rows = drive(plain)
+    p_leaves = [t.clone() for t in state_leaves(plain.states)]
+    p_time = timing(p_ms, plain)
+    ids = [max(n - 1 - k, 0) for k in range(S)]
+    meta = torch.zeros((S, 10), dtype=torch.float32, device=dev)
+    meta[:, :4] = seq.poses.q[ids].to(dev)
+    meta[:, 4:7] = seq.poses.t[ids].to(dev)
+    meta[:, 7] = torch.tensor(ids, dtype=torch.float32, device=dev)
+    b_imgs = torch.from_numpy(imgs[ids]).to(dev)
+    for F in (2, 4):
+        fr = MultiStreamRunner(cam, S, params=params,
+                               mesh=ms_mod.make_mesh([dev] * F,
+                                                     stream_axis=1))
+        assert fr.feat and len(fr.groups) == 1, fr.groups
+        rc.reset_counters()
+        with vmap_fallback_errors():
+            f_ms, f_rows = drive(fr)
+        counts = batched_counts(rc, dev)
+        launched = list(fr.group_launches)
+        differ = [j for j, (a, b) in enumerate(zip(
+            state_leaves(fr.states), p_leaves)) if not torch.equal(a, b)]
+        stats_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1.0)
+                        for ra, rb in zip(f_rows, p_rows)
+                        for a, b in zip(ra, rb) for k in a)
+        for is_pf in (False, True):
+            no_sync(lambda: feat_shard.feat_full_step(
+                fr._gstates[0], fr._lanes[0], b_imgs, meta, None, cam=cam,
+                params=fr.params, is_pf=is_pf, kf_slot=0))
+        phase("last_modules_feat", streams=S, feat=F, frames=n, card=smi,
+              leaves_differ=differ, stats_max_rel_diff=stats_rel,
+              no_host_sync=True, launches=launched,
+              counts=counts, feat_timing=timing(f_ms, fr),
+              plain_timing=p_time)
+        assert not differ, f"feat {F}: leaves {differ} differ from plain"
+        assert stats_rel <= 1e-5, stats_rel
+        assert launched == [n], launched
+        assert counts == {"v4_batched": n, "v4_batched_images": n * S,
+                          "work_v4_batched": n,
+                          "work_v4_batched_images": n * S, "v4": 0,
+                          "v2": 0, "v3": 0}, counts
+        fr.shutdown()
+    plain.shutdown()
+    t_a = time.perf_counter() - t_phase
+
+    # (b) the feature axis across two processes ----------------------------
+    t0 = time.perf_counter()
+    phase("last_modules_dist_smoke", card=smi, **dist_smoke_workers(dev, out))
+    t_b = time.perf_counter() - t0
+
+    # (c) bf16 epipolar gathers, (d) the matmul adjoint: phase 4's frames,
+    # after phase 4's own run again (its digits; the ms/frame baseline
+    # taken beside them).
+    t0 = time.perf_counter()
+    engines = {}
+    for name, upd, ref in (
+            ("float32", {}, None),
+            ("bfloat16", {"compute_dtype": "bfloat16"}, JAX_BF16_VGA),
+            ("matmul", {"nltgv2_adjoint": "matmul"}, JAX_MATMUL_VGA)):
+        prm = dataclasses.replace(params, engine=dataclasses.replace(
+            params.engine, **upd))
+        eng = Flame(cam.width, cam.height, cam=cam, params=prm, device=dev)
+        rc.reset_counters()
+        out_dir = os.path.join(out, f"option_{name}")
+        os.makedirs(out_dir, exist_ok=True)
+        res, ms, checked, _, _, _, recs = drive_main_path(eng, seq, out_dir)
+        launches, work = launch_counts(rc, dev)
+        if ref is None:       # phase 4 again: the same digits
+            ref = {"idepth_rmse": res4.mean_rmse,
+                   "recall": res4.mean_recall,
+                   "coverage": res4.final_coverage}
+            assert (res.mean_rmse, res.mean_recall, res.final_coverage) \
+                == tuple(ref.values()), (res, ref)
+        diff, ok = jax_band(res, ref)
+        nf = len(seq.timestamps)
+        phase(f"last_modules_{name}", card=smi, frames=res.frames_processed,
+              mean_rmse=res.mean_rmse, mean_recall=res.mean_recall,
+              mean_precision=res.mean_precision,
+              final_coverage=res.final_coverage, reference=ref, band=JAX_BAND,
+              diff=diff, within_band=ok,
+              ms_per_frame_p50=float(np.percentile(ms[5:], 50)),
+              ms_per_frame_p95=float(np.percentile(ms[5:], 95)),
+              phase4_ms_per_frame_p50=float(np.percentile(ms4, 50)),
+              launches=launches, work=work, idmap_checked_frames=checked)
+        assert res.frames_processed == nf and res.frames_failed == 0, res
+        assert all(r["health"] == 1.0 for r in recs)
+        assert launches["v4"] >= nf and launches["v2"] == 0 \
+            and launches["v3"] == 0, launches
+        assert work == launches and len(checked) == 6, (work, checked)
+        assert ok, (name, diff)
+        engines[name] = eng
+
+    # The epipolar update (f32 vs bf16 gathers) and the sweep (gather vs
+    # matmul adjoint) on the final states' inputs.
+    st = engines["bfloat16"].state
+    last = len(seq.timestamps) - 1
+    pyr = build_pyramid(seq.images[last].to(dev, torch.float32), 3)
+    cq, ct = seq.poses.q[last].to(dev), seq.poses.t[last].to(dev)
+    ops = {}
+    for dt in ("float32", "bfloat16"):
+        prm = dataclasses.replace(params, engine=dataclasses.replace(
+            params.engine, compute_dtype=dt))
+
+        def epi(prm=prm):
+            return _epipolar_step(st.feat, st.kf_pyrs, st.kf_q, st.kf_t, pyr,
+                                  cq, ct, cam=cam, params=prm)
+        ev, busy = device_events(epi)
+        ops[f"epipolar_{dt}"] = {"ms": cuda_median_ms(epi),
+                                 "launches": ev, "busy_ms": busy}
+    st = engines["matmul"].state
+    e, nl = params.engine, params.regularization.nltgv2
+    _, edge_fresh, lam = _smooth_pd_setup(st, params=engines["matmul"].params)
+    top = reg_ops.build_topology(st.edges, edge_fresh, st.vtx_uv,
+                                 inc_edges=st.inc_edges,
+                                 inc_sign=st.inc_sign)
+    gs = reg_ops.GraphState(x=st.vtx_x, w=st.vtx_w, q=st.edge_q,
+                            x_bar=st.vtx_x, w_bar=st.vtx_w)
+    N = int(st.vtx_x.shape[0])
+    for adj in ("gather", "matmul"):
+        def sweep(adj=adj):
+            g = (reg_ops.build_gcat(st.edges, edge_fresh, N)
+                 if adj == "matmul" else None)
+            return reg_ops.pd_iterate(
+                gs, top, st.vtx_z, lam, st.vtx_in_graph, g,
+                num_iters=e.pd_iters_per_frame, theta=nl.theta,
+                gate_tol=e.pd_gate_tol)
+        ev, busy = device_events(sweep)
+        ops[f"sweep_{adj}"] = {"ms": cuda_median_ms(sweep),
+                               "launches": ev, "busy_ms": busy}
+        if adj == "matmul":
+            no_sync(sweep)
+    gout = reg_ops.pd_iterate(gs, top, st.vtx_z, lam, st.vtx_in_graph,
+                              num_iters=e.pd_iters_per_frame, theta=nl.theta,
+                              gate_tol=e.pd_gate_tol)
+    mout = reg_ops.pd_iterate(gs, top, st.vtx_z, lam, st.vtx_in_graph,
+                              reg_ops.build_gcat(st.edges, edge_fresh, N),
+                              num_iters=e.pd_iters_per_frame, theta=nl.theta,
+                              gate_tol=e.pd_gate_tol)
+    live = st.vtx_in_graph
+    sweep_diff = max(float((mout.x - gout.x)[live].abs().max()),
+                     float((mout.w - gout.w)[live].abs().max()))
+    phase("last_modules_ops", card=smi, ops=ops,
+          gcat_bytes=N * 2 * int(st.edges.shape[0]) * 4,
+          matmul_minus_gather_xw_max_abs=sweep_diff,
+          matmul_sweep_no_host_sync=True,
+          seconds={"a": t_a, "b": t_b, "cd": time.perf_counter() - t0,
+                   "total": time.perf_counter() - t_phase})
+    assert sweep_diff <= 2e-3, sweep_diff
+
+
 def viz_path(engine, seq, params, cam, dev, out):
     """Phase 11: the viz modules on phase 4's final engine, and the live
     viewer against a FlameServer on the card."""
@@ -2584,6 +2845,9 @@ def main():
 
     # 12. many devices ---------------------------------------------------
     multi_device_path(seq, params, VGA, dev, OUT, node9, stats9, smi)
+
+    # 13. the last modules -----------------------------------------------
+    last_modules_path(seq, steady, res, params, VGA, dev, OUT, smi)
 
     # Result lines -----------------------------------------------------
     replaces = {"v4": "flame_ros_tpu/ops/raster_pallas.py:458",

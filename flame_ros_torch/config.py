@@ -237,10 +237,11 @@ class EngineParams:
     # its v3 kernel.
     pallas_raster_kernel: str = "v4"
 
-    # NLTGV2 adjoint formulation. "gather" (the incidence-list gather,
-    # exact f32) is the only one this package runs; None resolves to it.
-    # The JAX package's "matmul" (a bf16 incidence matmul for the TPU's
-    # matrix unit) is rejected by FlameParams.resolved.
+    # NLTGV2 adjoint formulation: "gather" (the incidence-list gather,
+    # exact f32) or "matmul" (one product per sweep with the [V, 2E]
+    # incidence matrix over bf16-rounded per-edge contributions, the JAX
+    # package's matrix-unit formulation; ops/nltgv2.py). None resolves
+    # to "gather" on every device, as JAX's auto does off the TPU.
     nltgv2_adjoint: str | None = None
 
     # --- Spatial graph partitioning: the NLTGV2 sweep over vertical
@@ -374,19 +375,17 @@ class FlameParams:
         """Resolve auto (None) knobs for a torch device ("cuda" or "cpu").
 
         On "cuda" the hand-written raster kernel is on (v4); on "cpu"
-        the plain raster runs. The NLTGV2 adjoint is
-        the exact f32 incidence gather on both. The JAX package's
-        "matmul" adjoint (bf16 incidence matmul for the TPU's matrix
-        unit) is not part of this package and is rejected."""
+        the plain raster runs. An unset NLTGV2 adjoint resolves to the
+        exact f32 incidence gather on both; "matmul" is kept when
+        asked."""
         kind = device.type if hasattr(device, "type") else \
             str(device).split(":")[0]
         if kind not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device!r}")
         eng = self.engine
-        if eng.nltgv2_adjoint == "matmul":
+        if eng.nltgv2_adjoint not in (None, "gather", "matmul"):
             raise ValueError(
-                "nltgv2_adjoint='matmul' is a TPU-only formulation; "
-                "use 'gather'")
+                f"unknown nltgv2_adjoint {eng.nltgv2_adjoint!r}")
         if eng.pallas_raster_kernel not in ("v4", "v3", "v2"):
             raise ValueError(
                 f"unknown pallas_raster_kernel {eng.pallas_raster_kernel!r}")

@@ -24,9 +24,8 @@ Usage:
   python -m flame_ros_torch.frontends.offline_runner --dataset asl \\
       --pose-path mav0/state_groundtruth_estimate0 --rgb-path mav0/cam0 \\
       --world-frame RDF --out out/
-
-Not ported yet: `--ba-refine` (windowed bundle adjustment, ROADMAP.md
-queue 1, item 1; refused) and `--profile-stages` (item 2).
+  python -m flame_ros_torch.frontends.offline_runner --dataset synthetic \
+      --pose-source tracking --ba-refine [--profile-stages]
 """
 from __future__ import annotations
 

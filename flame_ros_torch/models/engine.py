@@ -225,36 +225,48 @@ def _set_row(t, idx, val):
     return out
 
 
-def _track_step(state: EngineState, img_pyr, cur_q, cur_t, frame_id,
-                kf_slot: int, is_poseframe: bool, *, cam: Pinhole,
-                params: FlameParams, truth_idepth=None):
-    """Epipolar update -> graph/feature projection -> on poseframes:
-    keyframe ring insert (with re-anchor of the recycled slot's features),
-    detection and free-slot allocation. With `truth_idepth` ([H, W]
-    current-frame inverse depth, 0 where unknown) the filter posterior is
-    overridden by the truth. `frame_id` is a Python int or a 0-d int32
-    tensor (one per stream under torch.func.vmap); `kf_slot` and
-    `is_poseframe` are Python values. Every write is out of place, so the
-    step runs under vmap. Returns (state, status, uv_match, counts_vec
-    [7], (det_uv, det_take))."""
+def _epipolar_step(feat, kf_pyrs, kf_q, kf_t, img_pyr, cur_q, cur_t, *,
+                   cam: Pinhole, params: FlameParams):
+    """The engine's epipolar filter update of the feature lanes `feat`
+    (all of them, or one block of the feature-axis layout)."""
     eng = params.engine
     trk = params.features.tracking
-    det = params.features.detection
-    reg = params.regularization.nltgv2
-    dev = img_pyr.device
-    f32 = torch.float32
-
-    res = ep_ops.epipolar_update(
-        state.feat, state.kf_pyrs, state.kf_q, state.kf_t, img_pyr, cur_q,
-        cur_t, cam=cam, num_samples=eng.num_search_samples,
-        patch_size=trk.win_size, num_levels=NUM_LEVELS,
-        sigma_window=eng.sigma_window, idepth_min=eng.idepth_min,
-        idepth_max=eng.idepth_max, epipolar_line_var=trk.epipolar_line_var,
+    return ep_ops.epipolar_update(
+        feat, kf_pyrs, kf_q, kf_t, img_pyr, cur_q, cur_t, cam=cam,
+        num_samples=eng.num_search_samples, patch_size=trk.win_size,
+        num_levels=NUM_LEVELS, sigma_window=eng.sigma_window,
+        idepth_min=eng.idepth_min, idepth_max=eng.idepth_max,
+        epipolar_line_var=trk.epipolar_line_var,
         min_ref_patch_grad=eng.min_ref_patch_grad,
         ambiguous_match_ratio=eng.ambiguous_match_ratio,
         max_cost=eng.max_cost, max_dropouts=trk.max_dropouts,
         max_idepth_var=trk.max_idepth_var, gather_dtype=eng.compute_dtype,
         mode=eng.epipolar_mode, zero_mean_ssd=eng.zero_mean_ssd)
+
+
+def _track_step(state: EngineState, img_pyr, cur_q, cur_t, frame_id,
+                kf_slot: int, is_poseframe: bool, *, cam: Pinhole,
+                params: FlameParams, truth_idepth=None, epipolar=None):
+    """Epipolar update -> graph/feature projection -> on poseframes:
+    keyframe ring insert (with re-anchor of the recycled slot's features),
+    detection and free-slot allocation. With `truth_idepth` ([H, W]
+    current-frame inverse depth, 0 where unknown) the filter posterior is
+    overridden by the truth. `epipolar`: the filter's result when the
+    caller ran it (`_epipolar_step`; the feature-axis layout runs it on
+    its lane blocks), else it runs here. `frame_id` is a Python int or a
+    0-d int32 tensor (one per stream under torch.func.vmap); `kf_slot`
+    and `is_poseframe` are Python values. Every write is out of place, so
+    the step runs under vmap. Returns (state, status, uv_match,
+    counts_vec [7], (det_uv, det_take))."""
+    eng = params.engine
+    det = params.features.detection
+    reg = params.regularization.nltgv2
+    dev = img_pyr.device
+    f32 = torch.float32
+
+    res = epipolar if epipolar is not None else _epipolar_step(
+        state.feat, state.kf_pyrs, state.kf_q, state.kf_t, img_pyr, cur_q,
+        cur_t, cam=cam, params=params)
     feat = res.state
 
     if truth_idepth is not None:
@@ -469,8 +481,13 @@ def _smooth_step(state: EngineState, img_pyr, cur_q, cur_t, track_counts,
                                      inc_sign=state.inc_sign)
         gs = reg_ops.GraphState(x=vtx_x, w=vtx_w, q=edge_q, x_bar=vtx_x,
                                 w_bar=vtx_w)
+        # The matmul adjoint's incidence matrix, built per frame from the
+        # live edge set, as the JAX package builds it.
+        gcat = (reg_ops.build_gcat(state.edges, edge_fresh,
+                                   state.vtx_x.shape[0])
+                if eng.nltgv2_adjoint == "matmul" else None)
         gs = reg_ops.pd_iterate(
-            gs, top, state.vtx_z, lam, state.vtx_in_graph,
+            gs, top, state.vtx_z, lam, state.vtx_in_graph, gcat,
             num_iters=eng.pd_iters_per_frame, theta=nl.theta,
             gate_tol=eng.pd_gate_tol)
         costs = reg_ops.nltgv2_costs(gs, top, state.vtx_z, lam,

@@ -11,7 +11,13 @@ and fused into each feature's Gaussian posterior.
 Both candidate samplings are ported: `mode="line"` (the product default,
 one sliding-window sweep along the epipolar curve) and `mode="patch"`
 (each candidate patch the exact warp of the reference patch's rays).
-`gather_dtype="bfloat16"` (a halved-bytes gather for the TPU) is not.
+
+`gather_dtype="bfloat16"` gathers from bf16 copies of the current and
+keyframe pyramids (half the gathered bytes; intensities quantized to 8
+mantissa bits, under one gray level at 255). Each bilinear sample
+promotes to f32 as it meets its f32 weights (bf16 * f32 -> f32 in torch
+as in JAX), so the patches, SSD costs and every step after them are f32,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -113,9 +119,11 @@ def epipolar_update(
 ) -> EpipolarResult:
     if mode not in ("line", "patch"):
         raise ValueError(f"unknown epipolar mode {mode!r}")
-    if gather_dtype != "float32":
-        raise NotImplementedError(
-            f"gather_dtype {gather_dtype!r} is not ported (only float32)")
+    if gather_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown gather_dtype {gather_dtype!r}")
+    if gather_dtype == "bfloat16":
+        img_pyr = img_pyr.to(torch.bfloat16)
+        kf_pyrs = kf_pyrs.to(torch.bfloat16)
     N = state.mu.shape[0]
     P = patch_size
     half = P // 2

@@ -7,8 +7,15 @@ primal-dual sweeps with an L1 data term.
 
 The adjoint K^T runs as a gather over per-vertex incidence lists
 (`build_incidence`, host numpy): exact f32 and deterministic — no
-scatter-adds. The JAX package's bf16 incidence-matmul adjoint (a TPU
-matrix-unit formulation) is not ported.
+scatter-adds. `engine.nltgv2_adjoint="matmul"` runs it instead as one
+product per sweep with the [V, 2E] 0/1 incidence matrix of `build_gcat`
+over the per-edge tail/head contributions rounded to bf16, as the JAX
+package's matrix-unit formulation does (a ~1e-3 perturbation of the
+converged primal). torch's bf16 product would round its output to bf16,
+where JAX accumulates and returns f32: here the bf16-rounded
+contributions are multiplied as f32 (0/1 and bf16 values are exact in
+f32, and TF32 is off), which is JAX's product up to the order of the f32
+sums.
 
 `pd_iterate` with `gate_tol > 0` stays free of host syncs: it always runs
 `num_iters` sweeps and freezes the iterate with a device flag once the
@@ -87,6 +94,19 @@ def build_topology(edges, edge_valid, vtx_pos, inc_edges=None,
                          inc_sign=inc_sign)
 
 
+def build_gcat(edges, edge_valid, num_vertices: int):
+    """The incidence matrix of the matmul adjoint: [V, 2E] f32 with
+    G[v, e] = 1 where v is edge e's tail and G[v, E + e] = 1 where v is
+    its head (invalid edges all 0). Built by comparison, out of place, so
+    that it runs under torch.func.vmap; the entries equal the JAX
+    package's bf16 matrix exactly."""
+    v = torch.arange(num_vertices, device=edges.device)[:, None]
+    ev = edge_valid[None, :]
+    tail = (edges[:, 0][None, :] == v) & ev
+    head = (edges[:, 1][None, :] == v) & ev
+    return torch.cat([tail, head], 1).to(torch.float32)
+
+
 def _K_apply(top: GraphTopology, x, w):
     """Edge operator K(x, w) -> [E, 3]."""
     i, j = top.edges[:, 0].long(), top.edges[:, 1].long()
@@ -138,6 +158,7 @@ class _SweepConsts(NamedTuple):
     dp_inc: torch.Tensor     # [V, D, 2] dp of each incident edge
     edge_k1w: torch.Tensor   # [E, 3] (alpha, alpha * dp)
     beta: torch.Tensor       # [E]
+    dp: torch.Tensor         # [E, 2] p_i - p_j (the matmul adjoint's)
     z: torch.Tensor          # [V] data anchors
 
 
@@ -161,42 +182,86 @@ def _sweep_consts(top: GraphTopology, z, lam, vtx_valid, dt) -> _SweepConsts:
         head=(live - tail)[..., None], dp_inc=top.dp[e] * live[..., None],
         edge_k1w=torch.cat([top.alpha[:, None],
                             top.alpha[:, None] * top.dp], -1),
-        beta=top.beta, z=z)
+        beta=top.beta, dp=top.dp, z=z)
 
 
-def _sweep(c: _SweepConsts, theta: float, xw, xwb_src, q):
-    """One preconditioned primal-dual sweep (packed incidence-gather
-    formulation of nltgv2.py:252-341). xw [V, 3] packed (x, w1, w2) of
-    the updated vertices; xwb_src the extragradient iterate the edges
-    gather from (xwb itself, or a part's owned vertices followed by its
-    halo); q [E, 3]. Returns (xw, xwb, q)."""
-    pi = xwb_src[c.i]
-    pj = xwb_src[c.j]
-    k1 = (c.edge_k1w[:, 0] * (pi[:, 0] - pj[:, 0])
-          - c.edge_k1w[:, 1] * pi[:, 1] - c.edge_k1w[:, 2] * pi[:, 2])
-    kw = c.beta[:, None] * (pi[:, 1:] - pj[:, 1:])
-    Kx = torch.cat([k1[:, None], kw], -1)
+def _rows(x, idx):
+    """x[idx] along x's row axis: x [..., R, C], idx [..., *I] with x's
+    leading dimensions; returns [..., *I, C]. One gather, so the halves
+    of a sweep below take stream-batched operands directly (the
+    feature-axis layout calls them without vmap)."""
+    lead = idx.shape[:x.dim() - 2]
+    flat = idx.reshape(*lead, -1)
+    rows = torch.gather(x, -2, flat[..., None].expand(*flat.shape,
+                                                      x.shape[-1]))
+    return rows.reshape(*idx.shape, x.shape[-1])
+
+
+def _sweep_dual(c: _SweepConsts, xwb_src, q):
+    """The edge half of a sweep: dual ascent from the extragradient
+    iterate `xwb_src` (the rows `c.i`/`c.j` index), the projection, and
+    the per-edge adjoint contributions Pe = (alpha q1, beta q2, beta q3).
+    Returns (q, Pe), both [..., E, 3]."""
+    pi = _rows(xwb_src, c.i)
+    pj = _rows(xwb_src, c.j)
+    k1 = (c.edge_k1w[..., 0] * (pi[..., 0] - pj[..., 0])
+          - c.edge_k1w[..., 1] * pi[..., 1] - c.edge_k1w[..., 2] * pi[..., 2])
+    kw = c.beta[..., None] * (pi[..., 1:] - pj[..., 1:])
+    Kx = torch.cat([k1[..., None], kw], -1)
     q = torch.clamp(q + c.sigma * Kx, -1.0, 1.0) * c.ev
-    # Adjoint via one packed vertex gather.
-    Pe = torch.cat([(c.edge_k1w[:, 0] * q[:, 0])[:, None],
-                    c.beta[:, None] * q[:, 1:]], -1)
-    Pv = Pe[c.e]                                  # [V, D, 3]
+    Pe = torch.cat([(c.edge_k1w[..., 0] * q[..., 0])[..., None],
+                    c.beta[..., None] * q[..., 1:]], -1)
+    return q, Pe
+
+
+def _adjoint(c: _SweepConsts, Pe, gcat=None):
+    """K^T q [..., V, 3] of the updated vertices from the contributions
+    Pe of every edge their incidence lists (or gcat's columns) name: one
+    packed vertex gather, or with gcat ([..., V, 2E], `build_gcat`) one
+    product over the tail/head contributions rounded to bf16."""
+    if gcat is not None:
+        a_q1 = Pe[..., 0:1]
+        bq = Pe[..., 1:]
+        t_tail = torch.cat([a_q1, -a_q1 * c.dp + bq], -1)
+        t_head = torch.cat([-a_q1, -bq], -1)
+        tcat = torch.cat([t_tail, t_head], -2)           # [..., 2E, 3]
+        return gcat @ tcat.to(torch.bfloat16).to(torch.float32)
+    Pv = _rows(Pe, c.e)                           # [..., V, D, 3]
     gx = torch.sum(c.live_sgn * Pv[..., 0], -1)
     gw = torch.sum(c.tail[..., None] * (-Pv[..., 0:1] * c.dp_inc
                                         + Pv[..., 1:])
-                   - c.head * Pv[..., 1:], dim=1)
-    g = torch.cat([gx[:, None], gw], -1)
+                   - c.head * Pv[..., 1:], dim=-2)
+    return torch.cat([gx[..., None], gw], -1)
+
+
+def _sweep_primal(c: _SweepConsts, theta: float, xw, g):
+    """The vertex half of a sweep: primal descent by the adjoint g, the
+    L1 prox toward z, frozen vertices kept, and the extragradient step.
+    Returns (xw, xwb)."""
     xw_desc = xw - c.tau_xw * g
-    r = xw_desc[:, 0] - c.z
+    r = xw_desc[..., 0] - c.z
     x_new = c.z + torch.sign(r) * torch.clamp(torch.abs(r) - c.thr, min=0.0)
-    xw_new = torch.cat([x_new[:, None], xw_desc[:, 1:]], -1)
+    xw_new = torch.cat([x_new[..., None], xw_desc[..., 1:]], -1)
     xw_new = c.vm3 * xw_new + (1 - c.vm3) * xw
     xwb = xw_new + theta * (xw_new - xw)
+    return xw_new, xwb
+
+
+def _sweep(c: _SweepConsts, theta: float, xw, xwb_src, q, gcat=None):
+    """One preconditioned primal-dual sweep (packed incidence-gather
+    formulation of nltgv2.py:252-341): `_sweep_dual`, `_adjoint`,
+    `_sweep_primal`. xw [V, 3] packed (x, w1, w2) of the updated
+    vertices; xwb_src the extragradient iterate the edges gather from
+    (xwb itself, or a part's owned vertices followed by its halo); q
+    [E, 3]; gcat the matmul adjoint's incidence matrix or None. Returns
+    (xw, xwb, q)."""
+    q, Pe = _sweep_dual(c, xwb_src, q)
+    xw_new, xwb = _sweep_primal(c, theta, xw, _adjoint(c, Pe, gcat))
     return xw_new, xwb, q
 
 
 def pd_iterate(state: GraphState, top: GraphTopology, z, lam, vtx_valid,
-               *, num_iters: int = 10, theta: float = 1.0,
+               gcat=None, *, num_iters: int = 10, theta: float = 1.0,
                gate_tol: float = 0.0):
     """Run up to `num_iters` primal-dual sweeps (`_sweep`).
 
@@ -204,7 +269,8 @@ def pd_iterate(state: GraphState, top: GraphTopology, z, lam, vtx_valid,
     engine's only mode; the JAX package's fixed step_x/step_q mode is not
     ported). z: [V] data anchors; lam: [V] per-vertex data weights;
     vtx_valid: [V] bool — frozen vertices pass through unchanged.
-    gate_tol > 0 stops
+    gcat: None (the incidence gather) or `build_gcat`'s [V, 2E] matrix
+    (the matmul adjoint). gate_tol > 0 stops
     updating once a sweep's max |x change| falls below it (no host sync:
     the remaining sweeps run and are discarded by a device flag)."""
     dt = state.x.dtype
@@ -217,7 +283,7 @@ def pd_iterate(state: GraphState, top: GraphTopology, z, lam, vtx_valid,
                            device=state.x.device)
         for _ in range(num_iters):
             active = delta > gate_tol
-            xw_n, xwb_n, q_n = _sweep(c, theta, xw, xwb, q)
+            xw_n, xwb_n, q_n = _sweep(c, theta, xw, xwb, q, gcat)
             d_n = torch.max(torch.abs(xw_n[:, 0] - xw[:, 0]))
             xw = torch.where(active, xw_n, xw)
             xwb = torch.where(active, xwb_n, xwb)
@@ -225,7 +291,7 @@ def pd_iterate(state: GraphState, top: GraphTopology, z, lam, vtx_valid,
             delta = torch.where(active, d_n, delta)
     else:
         for _ in range(num_iters):
-            xw, xwb, q = _sweep(c, theta, xw, xwb, q)
+            xw, xwb, q = _sweep(c, theta, xw, xwb, q, gcat)
     return GraphState(x=xw[:, 0], w=xw[:, 1:], q=q, x_bar=xwb[:, 0],
                       w_bar=xwb[:, 1:])
 

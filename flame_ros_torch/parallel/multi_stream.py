@@ -26,6 +26,15 @@ Devices. The JAX package's `jax.sharding.Mesh` is an explicit list of
   halo exchange per sweep (`batched_full_step_spatial`). The group's
   engine state lives on its first device; the track step and the
   smooth tail run there.
+- a `Mesh` with axes ("stream", "feat") (`make_mesh(devices,
+  stream_axis=k)`: k stream groups of F = n / k devices): the JAX feat
+  axis. Each group's lane leaves (feature filter, vertices, edges,
+  incidence lists, triangles) live split into F blocks, block f on d_gf,
+  the other leaves on d_g0 (`parallel/feat_shard.py`). The epipolar
+  filter, the NLTGV2 sweeps and the cost sums run on the blocks, with an
+  all-gather of the primals and of the per-edge adjoint terms every
+  sweep; the rest runs on d_g0. The state equals the plain runner's bit
+  for bit. A Mesh with F = 1 is a flat list.
 
 A list may name one device several times: one card (or "cpu") then holds
 a 2- or 4-way layout, which runs the same partition, halo and install
@@ -57,10 +66,9 @@ Per frame a group uploads one [S_g, H, W] uint8 batch and one
 round makes one device-to-host copy of each group's vertex snapshot and
 one upload of the group's packed topologies (and partitions).
 
-Not ported: the feature-axis layout (`make_mesh(stream_axis < n)`, the
-"feat" lanes of `state_shardings`) and `get_meshes`' f32 bit-packed
-transport (the integer leaves are read as int32 here, with the same
-semantics past 2^24).
+`get_meshes` reads the integer leaves as int32 (the JAX package packs
+them into f32 bits for its transport; the semantics past 2^24 are the
+same).
 """
 from __future__ import annotations
 
@@ -87,21 +95,44 @@ from flame_ros_torch.models.engine import (DEVICE_STATS_KEYS, META_COLS,
 from flame_ros_torch.ops import nltgv2 as reg_ops
 from flame_ros_torch.ops import raster_cuda
 from flame_ros_torch.ops.pyramid import build_pyramid
-from flame_ros_torch.parallel import spatial_pd
+from flame_ros_torch.parallel import feat_shard, spatial_pd
 from flame_ros_torch.utils.device import resolve_device, resolve_devices
 
 # Deferred poseframe rounds in flight before a new one is dropped.
 _MAX_TOPO_PENDING = 2
 
 
-def make_mesh(devices=None, parts: int = 1,
-              auto_for_streams: Optional[int] = None) -> list:
+class Mesh:
+    """A device grid with named axes (the JAX package's
+    `jax.sharding.Mesh`): devices[i][j] is the device at index i of
+    axis_names[0] ("stream") and j of axis_names[1] ("feat")."""
+
+    def __init__(self, devices, axis_names=("stream", "feat")):
+        self.devices = [list(r) for r in devices]
+        self.axis_names = tuple(axis_names)
+        if len({len(r) for r in self.devices}) != 1:
+            raise ValueError(f"mesh rows must have one width: {devices!r}")
+
+    @property
+    def shape(self) -> dict:
+        return {self.axis_names[0]: len(self.devices),
+                self.axis_names[1]: len(self.devices[0])}
+
+    def __repr__(self):
+        return f"Mesh({self.devices!r}, {self.axis_names!r})"
+
+
+def make_mesh(devices=None, stream_axis: Optional[int] = None,
+              parts: int = 1, auto_for_streams: Optional[int] = None):
     """A device layout for `MultiStreamRunner(mesh=...)`: a flat list of
-    stream groups, or with `parts` > 1 a nested [groups][parts] list
-    (spatial partitioning). devices: the visible cards when None.
+    stream groups; with `parts` > 1 a nested [groups][parts] list
+    (spatial partitioning); with `stream_axis=k` a ("stream", "feat")
+    `Mesh` of k stream groups of n / k devices each (feature-axis
+    sharding). devices: the visible cards when None.
     auto_for_streams=S: the JAX package's rule, pure stream groups over
-    the first gcd(S, n) devices (every parts > 1 layout is an explicit
-    opt-in). Trailing devices that do not fill a group are left out."""
+    the first gcd(S, n) devices (every parts > 1 or feat > 1 layout is
+    an explicit opt-in). Trailing devices that do not fill a part group
+    are left out."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass the "
@@ -119,6 +150,13 @@ def make_mesh(devices=None, parts: int = 1,
         if n == 0:
             raise ValueError(f"{len(devices)} devices for {parts} parts")
         return [devices[i:i + parts] for i in range(0, n, parts)]
+    if stream_axis is not None:
+        k = int(stream_axis)
+        if k < 1 or len(devices) % k:
+            raise ValueError(f"stream_axis {k} does not divide "
+                             f"{len(devices)} devices")
+        F = len(devices) // k
+        return Mesh([devices[i * F:(i + 1) * F] for i in range(k)])
     return devices
 
 
@@ -147,12 +185,18 @@ def init_batched_state(num_streams: int, params: FlameParams, cam: Pinhole,
 
 
 def batched_frame_step(states: EngineState, img_pyrs, qs, ts, frame_ids, *,
-                       cam: Pinhole, params: FlameParams):
+                       cam: Pinhole, params: FlameParams, mesh=None):
     """One ordinary (non-poseframe) engine step for a batch of streams:
     epipolar filtering, graph projection, NLTGV2 sweeps and rasterization.
     img_pyrs [S, L, H, W], qs [S, 4], ts [S, 3], frame_ids [S] int32.
-    Returns (states, dense idepth maps [S, H, W], coverage [S])."""
+    mesh: None, or a ("stream", "feat") `Mesh`: the streams split over
+    its rows and each row's lanes over its devices (`feat_shard`); the
+    inputs may lie on any device. Returns (states, dense idepth maps
+    [S, H, W], coverage [S]), on the mesh's first device."""
     cov_idx = DEVICE_STATS_KEYS.index("coverage")
+    if mesh is not None:
+        return _feat_frame_step(states, img_pyrs, qs, ts, frame_ids,
+                                cam=cam, params=params, mesh=mesh)
 
     def one(state, img_pyr, q, t, fid):
         state, _, _, counts_vec, _ = _track_step(
@@ -163,6 +207,29 @@ def batched_frame_step(states: EngineState, img_pyrs, qs, ts, frame_ids, *,
         return state, idepth, stats_vec[cov_idx]
 
     return torch.func.vmap(one)(states, img_pyrs, qs, ts, frame_ids)
+
+
+def _feat_frame_step(states, img_pyrs, qs, ts, frame_ids, *, cam, params,
+                     mesh):
+    if not isinstance(mesh, Mesh) or mesh.axis_names != ("stream", "feat"):
+        raise ValueError(f"a ('stream', 'feat') Mesh is needed; got {mesh!r}")
+    rows = [resolve_devices(r) for r in mesh.devices]
+    out = []
+    for sl, devs in zip(_split(img_pyrs.shape[0], len(rows)), rows):
+        group = feat_shard.LaneGroup(devs)
+        fs = group.split(state_from_leaves(
+            [x[sl] for x in state_leaves(states)]))
+        fs, idepth, stats = feat_shard.feat_step(
+            fs, group, *(x[sl].to(group.home) for x in (
+                img_pyrs, qs, ts, frame_ids)), None, cam=cam,
+            params=params, is_pf=False, kf_slot=0)
+        out.append((group.join(fs), idepth,
+                    stats[:, DEVICE_STATS_KEYS.index("coverage")]))
+    home = rows[0][0]
+    st = state_from_leaves([torch.cat([x.to(home) for x in xs]) for xs in
+                            zip(*(state_leaves(o[0]) for o in out))])
+    return (st, torch.cat([o[1].to(home) for o in out]),
+            torch.cat([o[2].to(home) for o in out]))
 
 
 def _track_one(state, img, m, *, cam, params, is_pf, kf_slot):
@@ -369,13 +436,23 @@ class MultiStreamRunner:
                 resolve_device(None)        # raises: no card, no fallback
             device = torch.device(
                 "cuda", local_rank % torch.cuda.device_count())
-        groups, part_layout = self._layout(mesh, per, device)
+        groups, layout = self._layout(mesh, per, device)
         self.groups = groups
         self.device = groups[0][0]
         self.params = (params or FlameParams()).resolved(self.device)
         eng = self.params.engine
         sp = eng.spatial_parts
-        self.spatial = bool(sp > 1 and part_layout)
+        self.spatial = bool(sp > 1 and layout == "part")
+        # Feature-axis layout: each group's lanes over its devices.
+        self.feat = layout == "feat" and len(groups[0]) > 1
+        if self.feat:
+            F = len(groups[0])
+            for cap in (eng.max_features, eng.max_edges, eng.max_triangles):
+                if cap % F:
+                    raise ValueError(f"a feat axis of {F} does not divide "
+                                     f"the lane capacity {cap}")
+        self._lanes = [feat_shard.LaneGroup(g) if self.feat else None
+                       for g in groups]
         if sp > 1 and not self.spatial:
             raise ValueError(
                 "engine.spatial_parts > 1 requires a part layout: a nested "
@@ -407,6 +484,9 @@ class MultiStreamRunner:
         self._gstates = [init_batched_state(sl.stop - sl.start, self.params,
                                             cam, g[0])
                          for sl, g in zip(self._rows, groups)]
+        if self.feat:
+            self._gstates = [lg.split(st) for lg, st in
+                             zip(self._lanes, self._gstates)]
         self.parts = [None] * len(groups)   # PlacedPartition per group
         self._num_poseframes = 0
         self._kf_slot = 0
@@ -423,8 +503,8 @@ class MultiStreamRunner:
 
     @staticmethod
     def _layout(mesh, n_streams: int, device):
-        """(groups [[home, part1, ...], ...], part layout?) of a mesh
-        argument."""
+        """(groups [[home, device 1, ...], ...], "plain" | "part" |
+        "feat") of a mesh argument."""
         if mesh is None or mesh == "auto":
             dev = resolve_device(device)
             if dev.type == "cuda" and dev.index is None:
@@ -432,15 +512,21 @@ class MultiStreamRunner:
             if mesh == "auto" and dev.type == "cuda":
                 flat = make_mesh(auto_for_streams=n_streams)
                 if len(flat) > 1:
-                    return [[d] for d in flat], False
-            return [[dev]], False
-        if isinstance(mesh, str) or not hasattr(mesh, "__iter__"):
-            raise ValueError(f"mesh must be None, 'auto' or a device list; "
-                             f"got {mesh!r}")
-        rows = list(mesh)
-        nested = bool(rows) and all(
-            isinstance(r, (list, tuple)) for r in rows)
-        rows = [list(r) for r in rows] if nested else [[d] for d in rows]
+                    return [[d] for d in flat], "plain"
+            return [[dev]], "plain"
+        if isinstance(mesh, Mesh):
+            if mesh.axis_names != ("stream", "feat"):
+                raise ValueError(f"unknown mesh axes {mesh.axis_names}")
+            kind, rows = "feat", mesh.devices
+        elif isinstance(mesh, str) or not hasattr(mesh, "__iter__"):
+            raise ValueError(f"mesh must be None, 'auto', a Mesh or a device "
+                             f"list; got {mesh!r}")
+        else:
+            rows = list(mesh)
+            kind = "part" if rows and all(
+                isinstance(r, (list, tuple)) for r in rows) else "plain"
+        rows = [list(r) for r in rows] if kind != "plain" else \
+            [[d] for d in rows]
         if not rows or len({len(r) for r in rows}) != 1:
             raise ValueError(f"mesh rows must have one width: {mesh!r}")
         flat = resolve_devices([d for r in rows for d in r])
@@ -453,23 +539,36 @@ class MultiStreamRunner:
         if n_streams % len(groups):
             raise ValueError(f"{n_streams} streams do not split over "
                              f"{len(groups)} stream groups")
-        return groups, nested
+        return groups, kind
 
     # -- the stream-batched state ----------------------------------------
+    def _group_states(self) -> list:
+        """Each group's batched state, whole on its home device (the lane
+        blocks of the feature-axis layout joined)."""
+        if not self.feat:
+            return list(self._gstates)
+        return [lg.join(fs) for lg, fs in zip(self._lanes, self._gstates)]
+
+    def _set_group_state(self, g: int, st: EngineState):
+        self._gstates[g] = self._lanes[g].split(st) if self.feat else st
+
     @property
     def states(self) -> EngineState:
         """This process's streams' state, [S_local, ...] on the first
         group's device (the groups' blocks concatenated)."""
-        if len(self._gstates) == 1:
-            return self._gstates[0]
+        sts = self._group_states()
+        if len(sts) == 1:
+            return sts[0]
         return state_from_leaves([
             torch.cat([x.to(self.device) for x in xs]) for xs in
-            zip(*(state_leaves(s) for s in self._gstates))])
+            zip(*(state_leaves(s) for s in sts))])
 
     @states.setter
     def states(self, value: EngineState):
-        self._gstates = ([value] if len(self.groups) == 1 else
-                         place(value, [g[0] for g in self.groups]))
+        sts = ([value] if len(self.groups) == 1 else
+               place(value, [g[0] for g in self.groups]))
+        for g, st in enumerate(sts):
+            self._set_group_state(g, st)
 
     @property
     def last_stats(self):
@@ -545,7 +644,10 @@ class MultiStreamRunner:
             kw = dict(cam=self.cam, params=self.params, is_pf=is_pf,
                       kf_slot=kf_slot)
             before = raster_cuda.rasterize_tri_ids_v4_batched.launches
-            if spatial and self.parts[g] is not None:
+            if self.feat:
+                st, dmap, row = feat_shard.feat_full_step(
+                    self._gstates[g], self._lanes[g], *args, **kw)
+            elif spatial and self.parts[g] is not None:
                 st, dmap, row = batched_full_step_spatial(
                     self._gstates[g], self.parts[g], *args, **kw)
             else:
@@ -601,7 +703,7 @@ class MultiStreamRunner:
         the group's device."""
         return [torch.cat([st.vtx_uv.reshape(st.vtx_uv.shape[0], -1),
                            st.vtx_in_graph.to(torch.float32)], 1)
-                for st in self._gstates]
+                for st in self._group_states()]
 
     def _build_topologies(self, snaps, copied, wm: int):
         """The packed topologies [S_local, L] int32 of one round (with the
@@ -644,11 +746,12 @@ class MultiStreamRunner:
         if isinstance(bufs, tuple):
             bufs, parts = bufs
         e = self.params.engine
+        sts = self._group_states()
         for g, (sl, devs) in enumerate(zip(self._rows, self.groups)):
-            self._gstates[g] = _batched_install(
-                self._gstates[g], self._to_device(bufs[sl], devs[0]),
+            self._set_group_state(g, _batched_install(
+                sts[g], self._to_device(bufs[sl], devs[0]),
                 T=e.max_triangles, E=e.max_edges, N=e.max_features,
-                D=e.max_vertex_degree)
+                D=e.max_vertex_degree))
             if parts is not None:
                 self._place_parts(g, parts[sl])
 
@@ -699,7 +802,7 @@ class MultiStreamRunner:
         arrays = {f"leaf_{i}": np.concatenate(
             [x.detach().cpu().numpy() for x in xs])
             for i, xs in enumerate(zip(*(state_leaves(s)
-                                         for s in self._gstates)))}
+                                         for s in self._group_states())))}
         if self.multiprocess:
             arrays["__rows__"] = np.asarray(self._local, np.int32)
         arrays["__host__"] = np.array(
@@ -790,7 +893,7 @@ class MultiStreamRunner:
         watermark) is a different feature, so triangles touching it are
         masked."""
         out = []
-        for st in self._gstates:
+        for st in self._group_states():
             S, N, T = st.vtx_x.shape[0], st.vtx_x.shape[-1], st.tris.shape[-2]
             fl = torch.cat([st.vtx_uv.reshape(S, -1), st.vtx_x,
                             st.vtx_in_graph.to(torch.float32),

@@ -17,6 +17,11 @@ flame_ros_torch/parallel/dist_e2e.py (`gloo`, `--device cpu`).
   with `--spatial` (each rank's stream over a 2-part layout) completes;
   and a run killed after writing its frame-7 checkpoint shards, restarted
   from them, ends with the uninterrupted run's payload exactly.
+- Two worker processes of flame_ros_torch/parallel/dist_smoke.py
+  (tests/test_distributed.py:58-59, on the port): one batched step whose
+  feature axis pairs the two ranks (gloo all-gathers every sweep); both
+  print `DIST_OK`, with the coverage of the same step in one process on
+  the plain path, exactly.
 
 The workers read the frames from one file rendered here, rather than
 each rendering them; the single-process baseline runs in this process.
@@ -38,7 +43,7 @@ from flame_ros_torch.datasets.synthetic import make_sequence
 from flame_ros_torch.geometry.camera import Pinhole
 from flame_ros_torch.geometry.se3 import SE3
 from flame_ros_torch.models.engine import state_leaves
-from flame_ros_torch.parallel import dist_e2e
+from flame_ros_torch.parallel import dist_e2e, dist_smoke
 from flame_ros_torch.parallel.multi_stream import (MultiStreamRunner,
                                                    make_mesh)
 
@@ -74,7 +79,7 @@ def _start(frames_file, *extra):
         stderr=subprocess.STDOUT, text=True) for rank in range(2)]
 
 
-def _finish(procs, marker="DIST_E2E_OK"):
+def _finish(procs, marker="DIST_E2E_OK", key="stream"):
     outs = []
     try:
         for p in procs:
@@ -87,7 +92,7 @@ def _finish(procs, marker="DIST_E2E_OK"):
                 p.wait(timeout=30)
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank} failed:\n{out[-3000:]}"
-        assert f"{marker} stream={rank}" in out, out[-3000:]
+        assert f"{marker} {key}={rank}" in out, out[-3000:]
     return outs
 
 
@@ -180,6 +185,23 @@ def test_two_process_kill_and_restart_from_checkpoint(runs, frames_file,
         assert "CKPT_LOADED" in out, out[-2000:]
         got.update(_payloads(out))
     assert got == ref, (got, ref)
+
+
+def test_two_process_feat_axis_smoke():
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "flame_ros_torch.parallel.dist_smoke",
+         str(rank), "2", str(port), "--device", "cpu"], cwd=REPO,
+        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(2)]
+    single = dist_smoke.single_coverage("cpu")
+    torch.set_num_threads(1)
+    outs = _finish(procs, marker="DIST_OK", key="pid")
+    assert len(set(single)) == 1 and single[0] > 0.05, single
+    for out in outs:
+        line = [x for x in out.splitlines() if x.startswith("DIST_OK")][0]
+        assert "mesh={'stream': 2, 'feat': 2}" in line, line
+        assert float(line.split("cov=")[1]) == single[0], (line, single)
 
 
 # --- stream groups on one process ----------------------------------------

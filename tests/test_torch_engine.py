@@ -12,7 +12,9 @@ slots and 4 keyframes.
 - Slice band: `run_offline` over the same numpy frames on both. Host
   Delaunay of last-bit-different vertex positions may pick different
   triangles, so the runs are compared by a band: final rmse within 15 %
-  relative and coverage within 0.05.
+  relative and coverage within 0.05. The port with bf16 epipolar
+  gathers is held to the JAX package's bf16 engine bands
+  (tests/test_engine.py:553-562).
 """
 import dataclasses
 from types import SimpleNamespace
@@ -28,7 +30,7 @@ from flame_ros_tpu.geometry.camera import Pinhole as JCam
 from flame_ros_tpu.geometry.se3 import SE3 as JSE3
 from flame_ros_tpu.models.engine import Flame as JFlame
 from flame_ros_torch.config import FlameParams as TParams
-from flame_ros_torch.datasets.synthetic import make_sequence
+from flame_ros_torch.datasets.synthetic import QVGA, make_sequence
 from flame_ros_torch.frontends.offline_runner import Frame, main
 from flame_ros_torch.frontends.offline_runner import run_offline as trun
 from flame_ros_torch.geometry.camera import Pinhole as TCam
@@ -130,6 +132,27 @@ def test_run_offline_slice_band(seq):
     assert tres.mean_rmse == pytest.approx(jres.mean_rmse, rel=0.15)
     assert abs(tres.final_coverage - jres.final_coverage) <= 0.05
     assert tres.final_coverage > 0.3
+    # compute_dtype="bfloat16" (bf16 epipolar gathers) in the bands of
+    # tests/test_engine.py:553-562, at that test's configuration: QVGA,
+    # 18 frames, 512 feature slots, 30 sweeps a frame.
+    s = make_sequence(18, QVGA, motion="strafe", device="cpu")
+    bf16 = TParams.from_dict({
+        "engine": {"max_features": 512, "max_keyframes": 4,
+                   "pd_iters_per_frame": 30, "compute_dtype": "bfloat16"},
+        "input": {"poseframe_subsample_factor": 6}})
+    eng = Flame(QVGA.width, QVGA.height, cam=QVGA, params=bf16,
+                device="cpu")
+    for i in range(18):
+        assert eng.update(float(s.timestamps[i]), i,
+                          TSE3(s.poses.q[i], s.poses.t[i]), s.images[i],
+                          i % 6 == 0)
+    est = eng.get_inverse_depth_map()
+    d = s.depths[17].numpy()
+    gt = np.where(d > 0, 1.0 / np.maximum(d, 1e-6), 0.0)
+    m = np.isfinite(est) & (gt > 0)
+    err = np.abs(est - gt)[m]
+    assert m.mean() > 0.4, m.mean()
+    assert np.median(err) < 0.02 and (err < 0.1).mean() > 0.85
 
 
 def test_state_round_trip():

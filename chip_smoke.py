@@ -27,7 +27,8 @@ Phases, each printed as one line:
    plain v4 version (equal) and by the plain formulation `ops/raster.py::
    rasterize_tri_ids` (equal but on the few pixels that v4's evaluation
    order and its own split at VGA), whether the TPU v3's budgets would
-   hold there,
+   hold there, every frame equal bit for bit to the CPU's rendering of
+   it (image, depth and pose; phases 5-13 read the same frames),
    ms/frame and accuracy; then the v4 and v2 kernels timed on those six
    frames' inputs (kernel only and wrapper, CUDA-event medians), each
    equal to its plain version there; then, after the timed frames, one
@@ -74,9 +75,16 @@ Phases, each printed as one line:
    `track_frame` / `ring_relocalize` ms per call (CUDA events) and device
    launches per call (profiler), each checked to make no host sync;
 9. tracking mode with windowed bundle adjustment (`ba_refine=True`) on
-   phase 8 (a)'s frames: every frame tracked, accuracy in phase 8's bands
-   of the JAX package's CPU run of the sequence with `--ba-refine`, as
-   many BA solves as that run, v4 doing the raster work on every frame;
+   phase 8 (a)'s frames: every frame tracked, v4 doing the raster work
+   on every frame, and the run held to the JAX package's CPU runs of the
+   sequence with `--ba-refine`: frame by frame through frame 27 (poses
+   within 1e-4 of the run on the sequence itself, the first three
+   solves' costs within 1e-3 relative), and rmse, recall, coverage, ATE
+   and the number of solves each within the spread of the JAX runs on
+   the sequence and on fifteen copies of it moved by one float32 step
+   (the closed loop parts from frame 28), in phase 8's bands about that
+   spread; the last solve on the card against the same solve on the
+   CPU;
    `hybrid_bundle_adjust` ms per call (p50, max), its device launches and
    card-busy ms per call, `bundle_adjust_window`'s alone and checked to
    make no host sync, `ba_refine`'s share of its poseframe's ms, and
@@ -104,8 +112,9 @@ Phases, each printed as one line:
 11. viz on phase 4's final engine: the six debug products (the idepthmap
    product colored exactly on the finite pixels of the idepth map), host
    ms per product, the final mesh as PLY and as the HTML viewer read back
-   (vertex and face counts), and a FlameServer on the card streaming 10
-   frames to a LiveMeshViewer whose mesh JSON grows;
+   (vertex and face counts), and a FlameServer on the card, fed 10 frames
+   by the feeder `scripts/stream_synthetic_torch.py` (its `main`),
+   streaming to a LiveMeshViewer whose mesh JSON grows;
 12. many devices on the one card, each layout naming it several times,
    13 frames (three installs) of phase 4's sequence, stream k fed frame
    max(i - k, 0): (a) stream groups, S = 4 on [cuda:0] * 2 and S = 8 on
@@ -117,7 +126,12 @@ Phases, each printed as one line:
    the CPU test's bounds (maps 1e-4, vtx_x and edge_q 1e-5, graph
    membership equal, stats 1e-3 relative), no host sync in
    `batched_full_step_spatial`, the sweep's CUDA-event ms beside the
-   plain sweep's; (c) `hybrid_bundle_adjust_sharded` over [cuda:0] * 2
+   plain sweep's; a checkpoint written before frame 8 loaded into a
+   fresh spatial runner (the installed edges equal to a fresh host
+   Delaunay of the restored vertices, the install watermark equal to
+   `_max_frame_id`, as the JAX package re-triangulates at load) and run
+   on to frame 13, no host sync in `batched_full_step_spatial` on the
+   load's partitions; (c) `hybrid_bundle_adjust_sharded` over [cuda:0] * 2
    and * 4 at 16384 point lanes on phase 9's final window (its selected
    points, the rest padding) within 1e-5 of the unsharded solve, no
    host sync in `bundle_adjust_window_sharded`, ms / launches / busy ms
@@ -147,7 +161,25 @@ Phases, each printed as one line:
    with f32 and bf16 gathers, and the NLTGV2 sweep with the gather and
    the matmul adjoint, on the final state (CUDA-event medians with the
    host's issue, launches and card-busy ms by the profiler), the matmul
-   sweep checked to make no host sync.
+   sweep checked to make no host sync;
+14. the external-pose acceptance protocol of tests/test_acceptance.py
+   and tests/test_acceptance_stress.py (ACCEPT_RUNS: default, rotation,
+   low texture, both, exposure A and B, mav, primitives, and the TUM
+   and ASL pipelines; VGA, 200 frames, default FlameParams) through the
+   port's CLI `offline_runner.main`, rendered on the card, every frame
+   equal bit for bit to the CPU's (which the JAX runs read; the CPU's
+   rendered from phase 1 on in a process of its own, CpuFrames, and
+   compared by digests): 200 frames, none failed, every
+   frame healthy, v4 launched on every frame and v2 and v3 never
+   (wrapper counts and device work counters), the id buffer of frame 97
+   and of poseframe 150 (after the third ring wrap, before its install)
+   equal to the plain v4 version's recomputation (and to the plain
+   formulation up to order_split); each run held to the JAX package's
+   CPU run of the same frames (JAX_ACCEPT_VGA200): rmse, recall and
+   coverage within JAX_BAND, every gate of the JAX test that the JAX run
+   passes passed (the ones it fails printed, the run held to JAX's
+   there), exposure B beating A as in JAX; ms/frame p50/p95 per run
+   beside the card's name and power limit.
 
 Any failure exits non-zero. The line before the last is the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`; before
@@ -159,6 +191,7 @@ prints no result.
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -216,15 +249,69 @@ JAX_OCCLUDE_VGA = {"frames": 53, "idepth_rmse": 0.05073, "recall": 0.7564,
 # The same with windowed bundle adjustment on every poseframe, on the
 # port's rendered frames:
 #   JAX_PLATFORMS=cpu python scripts/jax_tracking_reference.py --ba-refine
-# (97 s on the CPU). The JAX CLI (--ba-refine) renders its own frames, at
-# most 0.022 gray levels away from the port's, and does 8 solves there
-# instead of 7 (rmse 0.05546, ATE 0.030). Phase 9 holds the port to this
-# run with phase 8's bands and its number of BA solves.
+# (97 s on the CPU). Its first three solves' costs are JAX_TRACK_BA_COSTS
+# and its poses through frame 27 JAX_TRACK_BA_POSES ([img_id, qw, qx, qy,
+# qz, tx, ty, tz]). The same run on the same frames with a random half of
+# their pixels moved one float32 step up, for K = 1 .. 15:
+#   JAX_PLATFORMS=cpu XLA_FLAGS="--xla_cpu_multi_thread_eigen=false \
+#       intra_op_parallelism_threads=1" python \
+#       scripts/jax_tracking_reference.py --ba-refine --poses --perturb K
+# (99-156 s each on the CPU, 8 at a time; K = 0 gives this run to every
+# digit). A step of one float32 ulp is the size of the rounding by which
+# two implementations of the same arithmetic differ. Every run stays
+# within 5.2e-5 of this one through frame 27, and from frame 28 the
+# closed loop takes other branches. JAX_TRACK_BA_SPREAD is the smallest
+# and largest value of each metric over the sixteen runs (K = 0 .. 15).
+# Phase 9 holds the port to this run frame by frame through frame 27
+# (poses within TRACK_BA_POSE_TOL, costs within TRACK_BA_COST_TOL), and
+# each of its metrics to phase 8's bands about that spread (no further
+# from its nearer end than the band, ATE's band 25 % of that end).
 JAX_TRACK_BA_VGA = {"frames": 60, "idepth_rmse": 0.05408, "recall": 0.7722,
                     "coverage": 0.8672, "ate_rmse": 0.02991,
                     "ate_rmse_sim3": 0.02649, "rpe_trans_rmse": 0.00788,
                     "rpe_rot_rmse_deg": 0.1603, "track_failed_frames": 0,
                     "relocalizations": 0, "ba_solves": 7}
+JAX_TRACK_BA_COSTS = (2.663280963897705, 2.0654830932617188,
+                      2.253582715988159)
+JAX_TRACK_BA_SPREAD = {
+    "idepth_rmse": (0.05082291147361199, 0.06092065821091334),
+    "recall": (0.7634243164062499, 0.7729645182291667),
+    "coverage": (0.8438020944595337, 0.8884961009025574),
+    "ate_rmse": (0.01843284784372517, 0.05315985392607937),
+    "ba_solves": (7, 8),
+}
+JAX_TRACK_BA_POSES = [
+    [0, 1, 0, 0, 0, 0, 0, 0],
+    [1, 0.999996364, -1.90984374e-05, 0.00261830608, -3.71541464e-05, 0.0640292913, 0.00085615163, 0.00210590009],
+    [2, 0.999985993, 1.91127074e-05, 0.005250772, -9.58724468e-06, 0.127013355, 0.00411693519, 0.00418805238],
+    [3, 0.999968767, -5.06469914e-05, 0.00786049198, -3.5524241e-05, 0.188485488, 0.00867857691, 0.00582007505],
+    [4, 0.999945939, -5.64438196e-05, 0.0103341844, -3.72372015e-05, 0.248001173, 0.0156672988, 0.00722049968],
+    [5, 0.999918401, -2.78708267e-05, 0.0126432041, -3.0192783e-05, 0.305036128, 0.0246907584, 0.00853112713],
+    [6, 0.999884784, -6.47533525e-05, 0.014916949, -4.06725412e-05, 0.357975006, 0.0350302644, 0.0094620334],
+    [7, 0.999846637, -3.03140459e-05, 0.0169502106, -4.20902834e-05, 0.407271266, 0.0474046171, 0.0103926901],
+    [8, 0.999811471, -9.30727547e-05, 0.0189176984, -5.1560768e-05, 0.451116562, 0.0606819093, 0.0113446247],
+    [9, 0.999783397, 0.000137896204, 0.0203618053, 4.80758536e-06, 0.491716802, 0.0773770437, 0.0131261507],
+    [10, 0.999752581, 5.1530882e-05, 0.0218660161, -1.6285574e-05, 0.52529031, 0.093041338, 0.0139684565],
+    [11, 0.999727011, -6.45119235e-06, 0.0230765548, -1.00390389e-05, 0.553026795, 0.109875262, 0.0148619544],
+    [12, 0.999711633, 7.88707348e-06, 0.0239160564, -5.1070434e-05, 0.57511574, 0.127932638, 0.0165675692],
+    [13, 0.999706864, -5.10493555e-05, 0.0245376192, -5.09008169e-06, 0.590399504, 0.146238863, 0.0182313081],
+    [14, 0.999697328, -0.000118668417, 0.024931496, -2.85066089e-05, 0.598907888, 0.164910361, 0.0195784848],
+    [15, 0.999698341, -0.000106273968, 0.0248909462, 2.71754743e-07, 0.60109216, 0.183965594, 0.0218427498],
+    [16, 0.999702871, -0.000158263239, 0.02472407, -6.2398758e-06, 0.595867991, 0.202698529, 0.0242312774],
+    [17, 0.999719381, -4.77898611e-05, 0.0240956545, 7.02364632e-05, 0.5847736, 0.222253203, 0.028374223],
+    [18, 0.999735832, 7.95723172e-05, 0.0235081632, 5.54886101e-05, 0.56552875, 0.241364866, 0.0314281806],
+    [19, 0.999766588, 7.62692362e-05, 0.0224408414, 7.25216669e-05, 0.540852129, 0.259090424, 0.0355016589],
+    [20, 0.999795079, 6.56942648e-05, 0.0211460106, 7.59530012e-05, 0.509705424, 0.275871545, 0.0398730487],
+    [21, 0.99982518, 6.71552625e-05, 0.019675374, 0.000149858242, 0.472526014, 0.291505963, 0.0441914909],
+    [22, 0.999859333, 0.000273531215, 0.0179047622, 0.000225043535, 0.430396318, 0.307319403, 0.0493093655],
+    [23, 0.999893248, 0.000319647137, 0.0160019491, 0.000289904536, 0.382861257, 0.320603251, 0.0537401587],
+    [24, 0.999931753, 0.000300477259, 0.0136950891, 0.00036067504, 0.332459509, 0.331944078, 0.0583641566],
+    [25, 0.999970376, 0.000233761617, 0.0114312479, 0.000401283032, 0.277179867, 0.341114879, 0.0620602667],
+    [26, 0.999994159, 0.000209519334, 0.00911035761, 0.00046322553, 0.217915848, 0.348880529, 0.0661547333],
+    [27, 1.00001156, 0.000209804828, 0.00695385737, 0.000531486585, 0.154807091, 0.354853272, 0.0698509067],
+]
+TRACK_BA_POSE_TOL = 1e-4
+TRACK_BA_COST_TOL = 1e-3
 # The JAX package on the CPU over the phase-4 frames (the port's renderer)
 # with bf16 epipolar gathers, and with the matmul NLTGV2 adjoint:
 #   JAX_PLATFORMS=cpu python scripts/jax_option_reference.py \
@@ -236,6 +323,151 @@ JAX_BF16_VGA = {"idepth_rmse": 0.0444833, "recall": 0.7385114,
                 "coverage": 0.8503646}
 JAX_MATMUL_VGA = {"idepth_rmse": 0.0443720, "recall": 0.7386841,
                   "coverage": 0.8501270}
+# The external-pose acceptance protocol of tests/test_acceptance.py and
+# tests/test_acceptance_stress.py: VGA, 200 frames, default FlameParams.
+# Per run: the `make_sequence` keyword arguments that differ from the
+# default sequence (room scene, strafe, texture gain 1, no exposure
+# change), whether the engine matches with zero_mean_ssd, the dataset
+# (tum and asl: the sequence written as a TUM or an ASL tree and read
+# back through `--dataset tum|asl`), the JAX test, and that test's gates
+# on the runner's summary, quoted. accept_argv gives the offline runner's
+# arguments of a run. Every run also needs frames == 200 and failed == 0;
+# exposure_b must beat exposure_a on rmse, recall and abs_rel
+# (EXPOSURE_AB).
+ACCEPT_FRAMES = 200
+_DEFAULT_GATES = (("idepth_rmse", "<", 0.05), ("precision", ">", 0.95),
+                  ("recall", ">", 0.80), ("coverage", ">", 0.85))
+_ROTATION_GATES = (("idepth_rmse", "<", 0.05), ("precision", ">", 0.95),
+                   ("recall", ">", 0.70), ("coverage", ">", 0.80))
+_MAV_GATES = (("idepth_rmse", "<", 0.06), ("precision", ">", 0.95),
+              ("recall", ">", 0.70), ("coverage", ">", 0.80))
+ACCEPT_RUNS = {
+    "default": dict(seq={}, test="tests/test_acceptance.py:22",
+                    gates=_DEFAULT_GATES),
+    "rotation": dict(seq=dict(motion="rotation"),
+                     test="tests/test_acceptance_stress.py:38",
+                     gates=_ROTATION_GATES),
+    "low_texture": dict(seq=dict(texture_gain=0.3),
+                        test="tests/test_acceptance_stress.py:49",
+                        gates=_DEFAULT_GATES),
+    "rotation_low_texture": dict(
+        seq=dict(motion="rotation", texture_gain=0.3),
+        test="tests/test_acceptance_stress.py:60", gates=_ROTATION_GATES),
+    "exposure_a": dict(seq=dict(exposure_amp=0.5),
+                       test="tests/test_acceptance_stress.py:74", gates=()),
+    "exposure_b": dict(seq=dict(exposure_amp=0.5), zero_mean_ssd=True,
+                       test="tests/test_acceptance_stress.py:74",
+                       gates=(("idepth_rmse", "<", 0.07),
+                              ("precision", ">", 0.95),
+                              ("recall", ">", 0.70),
+                              ("coverage", ">", 0.80))),
+    "mav": dict(seq=dict(motion="mav"),
+                test="tests/test_acceptance_stress.py:92",
+                gates=_MAV_GATES + (("delta1", ">", 0.85),)),
+    "primitives": dict(seq=dict(scene="primitives"),
+                       test="tests/test_acceptance_stress.py:107",
+                       gates=(("idepth_rmse", "<", 0.08),
+                              ("precision", ">", 0.95),
+                              ("recall", ">", 0.80),
+                              ("coverage", ">", 0.88),
+                              ("abs_rel", "<", 0.15))),
+    "tum": dict(seq={}, dataset="tum",
+                test="tests/test_acceptance_stress.py:125",
+                gates=_DEFAULT_GATES),
+    "asl": dict(seq=dict(motion="mav"), dataset="asl",
+                test="tests/test_acceptance_stress.py:150",
+                gates=_MAV_GATES),
+}
+# The JAX package on the CPU over the port's rendered frames of each
+# ACCEPT_RUNS run (tum and asl: the trees the port's exporters write),
+# default FlameParams, unrounded:
+#   JAX_PLATFORMS=cpu python scripts/jax_acceptance_reference.py --run NAME
+# "seconds" is each run's wall time on an 8-core CPU with the ten runs
+# (and their --port runs) in parallel; primitives ran alone (its sphere
+# path moved to float64 afterwards, the room scenes' frames unchanged).
+# Phase 14 and the slow files tests/test_torch_acceptance{,_stress}.py
+# hold the port to these.
+JAX_ACCEPT_VGA200 = {
+    "default": {"frames": 200, "failed": 0,
+        "idepth_rmse": 0.029394804341718553, "precision": 1.0,
+        "recall": 0.8439964029947916, "coverage": 0.8432585000991821,
+        "abs_rel": 0.0230408925563097, "delta1": 0.9680987000465393,
+        "seconds": 241.2},
+    "rotation": {"frames": 200, "failed": 0,
+        "idepth_rmse": 0.027800041614100338, "precision": 1.0,
+        "recall": 0.7697056640624999, "coverage": 0.7479329705238342,
+        "abs_rel": 0.042098917067050934, "delta1": 0.9616085886955261,
+        "seconds": 194.6},
+    "low_texture": {"frames": 200, "failed": 0,
+        "idepth_rmse": 0.03187185681425035, "precision": 1.0,
+        "recall": 0.848523583984375, "coverage": 0.8333626389503479,
+        "abs_rel": 0.02671581506729126, "delta1": 0.9619232416152954,
+        "seconds": 227.0},
+    "rotation_low_texture": {"frames": 200, "failed": 0,
+        "idepth_rmse": 0.030490153059363364, "precision": 1.0,
+        "recall": 0.7864562825520836, "coverage": 0.7593717575073242,
+        "abs_rel": 0.036500636488199234, "delta1": 0.9696929454803467,
+        "seconds": 215.5},
+    "exposure_a": {"frames": 200, "failed": 0,
+        "idepth_rmse": 0.1731105378270149, "precision": 1.0,
+        "recall": 0.7811815266927082, "coverage": 0.9025716185569763,
+        "abs_rel": 0.46034201979637146, "delta1": 0.3316730856895447,
+        "seconds": 165.0},
+    "exposure_b": {"frames": 200, "failed": 0,
+        "idepth_rmse": 0.04704366030171513, "precision": 1.0,
+        "recall": 0.838181298828125, "coverage": 0.8610416650772095,
+        "abs_rel": 0.07483015954494476, "delta1": 0.9239084124565125,
+        "seconds": 199.1},
+    "mav": {"frames": 200, "failed": 0, "idepth_rmse": 0.037572098430246115,
+        "precision": 1.0, "recall": 0.7355970377604166,
+        "coverage": 0.6648697853088379, "abs_rel": 0.028066487982869148,
+        "delta1": 0.9608711004257202, "seconds": 213.9},
+    "primitives": {"frames": 200, "failed": 0,
+        "idepth_rmse": 0.062211409751325844, "precision": 0.9989923085219294,
+        "recall": 0.8491672811163677, "coverage": 0.8736849427223206,
+        "abs_rel": 0.0851355567574501, "delta1": 0.854595422744751,
+        "seconds": 87.9},
+    "tum": {"frames": 200, "failed": 0, "idepth_rmse": 0.02939503651112318,
+        "precision": 1.0, "recall": 0.8439964029947916,
+        "coverage": 0.8432585000991821, "abs_rel": 0.023041969165205956,
+        "delta1": 0.9680948257446289, "seconds": 211.7},
+    "asl": {"frames": 200, "failed": 0, "idepth_rmse": 0.03757419185712933,
+        "precision": 1.0, "recall": 0.7355968749999999,
+        "coverage": 0.6648697853088379, "abs_rel": 0.02806798368692398,
+        "delta1": 0.9608711004257202, "seconds": 226.4},
+}
+EXPOSURE_AB = (("idepth_rmse", "<"), ("recall", ">"), ("abs_rel", "<"))
+
+
+def accept_sequence(name):
+    """An acceptance run's `make_sequence` keyword arguments, in full."""
+    return dict(dict(motion="strafe", scene="room", texture_gain=1.0,
+                     exposure_amp=0.0), **ACCEPT_RUNS[name]["seq"])
+
+
+def accept_argv(name):
+    """The offline runner's arguments of a synthetic acceptance run:
+    `--dataset synthetic --resolution vga --frames 200` and one flag for
+    each keyword argument of its sequence and option."""
+    spec = ACCEPT_RUNS[name]
+    argv = ["--dataset", "synthetic", "--resolution", "vga", "--frames",
+            str(ACCEPT_FRAMES)]
+    for key, value in spec["seq"].items():
+        argv += ["--" + key.replace("_", "-"), str(value)]
+    return argv + (["--zero-mean-ssd"] if spec.get("zero_mean_ssd") else [])
+
+
+def gate_results(summary, gates):
+    """[(key, op, bound, value, passed)] of a run's summary against
+    gates."""
+    out = []
+    for key, op, bound in gates:
+        v = summary[key]
+        ok = v is not None and (v < bound if op == "<" else v > bound)
+        out.append((key, op, bound, v, bool(ok)))
+    return out
+
+
 OCCLUDED = (24, 30)
 # tests/test_tracking_recovery.py:141-142: a 7-frame occlusion fails at
 # least its 7 frames and recovers within 8 more.
@@ -498,25 +730,50 @@ def order_split(torch, rc, pos, tris, ids_v4, ids_plain):
     return len(px), bool(explained.all())
 
 
+def check_idmap(engine, frame):
+    """Recompute the id buffer of the frame the engine has just rastered
+    from its own state: the plain v4 version must equal the kernel's bit
+    for bit, and the plain formulation `ops/raster.py::rasterize_tri_ids`
+    may differ only on pixels that the two evaluation orders split
+    (order_split). Call it while the state still holds that raster's
+    inputs: after a non-poseframe, or on a poseframe before its topology
+    install. Returns (pixels split, the raster's inputs)."""
+    import torch
+    from flame_ros_torch.models.engine import _smooth_pd_setup
+    from flame_ros_torch.ops import raster as raster_ops
+    from flame_ros_torch.ops import raster_cuda as rc
+    cam = engine.cam
+    st = engine.state
+    tri_fresh, _, _ = _smooth_pd_setup(st, params=engine.params)
+    _, pvalid = raster_ops.triangle_planes(st.vtx_uv, st.vtx_x, st.tris,
+                                           tri_fresh)
+    args = (st.vtx_uv, st.tris, pvalid)
+    kw = dict(height=cam.height, width=cam.width)
+    if not torch.equal(rc.rasterize_tri_ids_v4_ref(*args, **kw),
+                       st.last_idmap):
+        raise AssertionError(f"frame {frame}: main-path id buffer "
+                             "differs from plain v4")
+    n_px, explained = order_split(torch, rc, st.vtx_uv, st.tris,
+                                  st.last_idmap,
+                                  raster_ops.rasterize_tri_ids(*args, **kw))
+    if not explained:
+        raise AssertionError(f"frame {frame}: the id buffer differs from "
+                             "the plain formulation beyond evaluation order")
+    return n_px, (st.vtx_uv.clone(), st.tris.clone(), pvalid)
+
+
 def drive_main_path(engine, seq, out_dir):
     """run_offline over `seq` with `engine`. Times each frame on the host
     clock from its start to the end of its stats read (a device sync);
-    after six non-poseframes spread over the run, recomputes that frame's id
-    buffer from the engine's own state with the plain v4 version, which
-    must equal it, and with the plain formulation `ops/raster.py::
-    rasterize_tri_ids`, which may differ only on pixels that the two
-    evaluation orders split (order_split); records whether the TPU v3's
-    budgets would hold on that frame's mesh, and keeps the raster's
-    inputs.
+    after six non-poseframes spread over the run, recomputes that frame's
+    id buffer (check_idmap), records whether the TPU v3's budgets would
+    hold on that frame's mesh, and keeps the raster's inputs.
     Returns (RunResult, ms per frame, checked frame ids, pixels that
     differ from the plain formulation per checked frame, v3 fits per
     checked frame, raster inputs per checked frame, telemetry)."""
     import numpy as np
-    import torch
     from flame_ros_torch.frontends.offline_runner import (run_offline,
                                                           synthetic_frames)
-    from flame_ros_torch.models.engine import _smooth_pd_setup
-    from flame_ros_torch.ops import raster as raster_ops
     from flame_ros_torch.ops import raster_cuda as rc
     cam = engine.cam
     pf_every = engine.params.input.poseframe_subsample_factor
@@ -530,26 +787,10 @@ def drive_main_path(engine, seq, out_dir):
             # that frame's raster (no topology install since). Frames 7,
             # 17, ..., 57: the mesh exists from the second poseframe on.
             if (i - 1) % 10 == 7 and (i - 1) % pf_every != 0:
-                st = engine.state
-                tri_fresh, _, _ = _smooth_pd_setup(st, params=engine.params)
-                _, pvalid = raster_ops.triangle_planes(
-                    st.vtx_uv, st.vtx_x, st.tris, tri_fresh)
-                args = (st.vtx_uv, st.tris, pvalid)
-                kw = dict(height=cam.height, width=cam.width)
-                if not torch.equal(rc.rasterize_tri_ids_v4_ref(*args, **kw),
-                                   st.last_idmap):
-                    raise AssertionError(f"frame {i - 1}: main-path id "
-                                         "buffer differs from plain v4")
-                n_px, explained = order_split(
-                    torch, rc, st.vtx_uv, st.tris, st.last_idmap,
-                    raster_ops.rasterize_tri_ids(*args, **kw))
-                if not explained:
-                    raise AssertionError(
-                        f"frame {i - 1}: the id buffer differs from the "
-                        "plain formulation beyond evaluation order")
+                n_px, args = check_idmap(engine, i - 1)
                 split.append(n_px)
                 checked.append(i - 1)
-                inputs.append((st.vtx_uv.clone(), st.tris.clone(), pvalid))
+                inputs.append(args)
                 v3_fits.append(v3_budgets_hold(rc, args, cam.height, {}))
             starts.append(time.perf_counter())
             yield f
@@ -1260,6 +1501,52 @@ def tracking_path(seq, ms4, params, cam, dev, out):
     return summaries, frame_lists
 
 
+def track_ba_prefix(node):
+    """A tracking run with BA against the JAX run JAX_TRACK_BA_VGA frame
+    by frame, over the frames of JAX_TRACK_BA_POSES (to the last frame
+    before any of the JAX package's runs of JAX_TRACK_BA_SPREAD parts
+    from it) and the solves of JAX_TRACK_BA_COSTS: the largest pose
+    difference (quaternion and translation components) and the largest
+    relative cost difference."""
+    import numpy as np
+    got = {int(i): np.concatenate([p.q.detach().cpu().numpy().ravel(),
+                                   p.t.detach().cpu().numpy().ravel()])
+           for i, _, p in node.trajectory}
+    ref = np.asarray(JAX_TRACK_BA_POSES, dtype=np.float64)
+    mine = np.stack([got[int(i)] for i in ref[:, 0]])
+    n = len(JAX_TRACK_BA_COSTS)
+    costs = list(node.ba_costs[:n])
+    cost_rel = (max(abs(c / r - 1.0) for c, r in zip(costs,
+                                                     JAX_TRACK_BA_COSTS))
+                if len(costs) == n else float("inf"))
+    return {"last_frame": int(ref[-1, 0]),
+            "pose_diff": float(np.abs(mine - ref[:, 1:]).max()),
+            "solves": n, "costs": costs, "cost_rel_diff": cost_rel}
+
+
+def outside_spread(vals):
+    """The metrics of vals (the keys of JAX_TRACK_BA_SPREAD) that lie
+    outside phase 8's bands about JAX_TRACK_BA_SPREAD, each with its
+    value and the spread: rmse relative to the spread's nearer end
+    (JAX_BAND), recall and coverage absolute (JAX_BAND), ATE 25 % of the
+    nearer end (at least 1e-3 m), the number of solves inside it."""
+    out = {}
+    for k, v in vals.items():
+        lo, hi = JAX_TRACK_BA_SPREAD[k]
+        end = min(max(v, lo), hi)
+        if k == "ba_solves":
+            band = 0
+        elif k == "idepth_rmse":
+            band = JAX_BAND[k] * end
+        elif k == "ate_rmse":
+            band = max(0.25 * end, 1e-3)
+        else:
+            band = JAX_BAND[k]
+        if abs(v - end) > band:
+            out[k] = (v, lo, hi)
+    return out
+
+
 def tracking_ba_path(seq, ms4, ms8, params, cam, dev, out):
     """Phase 9: phase 8 (a) with windowed bundle adjustment on every
     poseframe (`ba_refine=True`). ms4 and ms8 are phase 4's and phase 8
@@ -1329,8 +1616,13 @@ def tracking_ba_path(seq, ms4, ms8, params, cam, dev, out):
     assert work == {"v4": launches["v4"], "v2": 0, "v3": 0}, work
     # Every solve went through the hybrid solver.
     assert len(hb.events) == len(bw.events) == len(node.ba_costs)
-    diff, bands_ok = track_bands(res, ref, ("ate_rmse", "idepth_rmse",
-                                            "recall", "coverage"))
+    diff, _ = track_bands(res, ref, ("ate_rmse", "idepth_rmse", "recall",
+                                     "coverage"))
+    prefix = track_ba_prefix(node)
+    outside = outside_spread(dict(
+        idepth_rmse=res.mean_rmse, recall=res.mean_recall,
+        coverage=res.final_coverage, ate_rmse=res.ate_rmse,
+        ba_solves=len(node.ba_costs)))
     # The last solve again, standalone: no host sync inside
     # bundle_adjust_window; launches and card-busy ms of a whole
     # hybrid_bundle_adjust call and of its window solve.
@@ -1359,7 +1651,8 @@ def tracking_ba_path(seq, ms4, ms8, params, cam, dev, out):
         mean_rmse=res.mean_rmse, mean_precision=res.mean_precision,
         mean_recall=res.mean_recall, final_coverage=res.final_coverage,
         final_abs_rel=res.final_abs_rel, final_delta1=res.final_delta1,
-        jax_cpu=ref, diff=diff,
+        jax_cpu=ref, diff=diff, jax_spread=JAX_TRACK_BA_SPREAD,
+        outside_jax_spread=outside, to_frame=prefix,
         hybrid_ba_ms_p50=pctl(np, hms, 50), hybrid_ba_ms_max=max(hms),
         hybrid_ba_host_ms_p50=pctl(np, [x * 1e3 for x in hb.host_s], 50),
         hybrid_ba_launches_per_call=hb_events,
@@ -1381,8 +1674,10 @@ def tracking_ba_path(seq, ms4, ms8, params, cam, dev, out):
         main_path_ms_per_frame_p95=pctl(np, ms4, 95),
         launches=launches, work=work)
     checks = {
-        "solves_equal_jax": len(node.ba_costs) == ref["ba_solves"],
-        "bands": bands_ok,
+        "poses_and_solves_as_jax_to_frame": (
+            prefix["pose_diff"] <= TRACK_BA_POSE_TOL
+            and prefix["cost_rel_diff"] <= TRACK_BA_COST_TOL),
+        "within_jax_spread": not outside,
         "card_equals_cpu_path": (card_cpu["n_valid_equal"]
                                  and max(card_cpu["q"], card_cpu["t"]) <= 1e-4
                                  and card_cpu["final_cost_rel"] <= 1e-3)}
@@ -1884,11 +2179,15 @@ def multi_device_path(seq, params, cam, dev, out, node9, stats9, smi,
     n = 13          # poseframes 0, 6, 12: three topology installs
     per = n if dev.type == "cuda" else 0    # batched launches per group
 
-    def drive(r, S):
-        """Host ms of each update to its stats read, and the stats."""
+    def drive(r, S, save=None, lo=0):
+        """Host ms of each update to its stats read, and the stats, over
+        frames lo..n-1; save=(frame, path) writes a checkpoint before that
+        frame, outside its time."""
         t_upd, rows = [], []
-        for i in range(n):
+        for i in range(lo, n):
             frames, _ = ms_frames(seq_np, i, S, SE3)
+            if save is not None and i == save[0]:
+                r.save_checkpoint(save[1])
             t0 = time.perf_counter()
             r.update(frames)
             rows.append(r.flush_stats())
@@ -1969,6 +2268,57 @@ def multi_device_path(seq, params, cam, dev, out, node9, stats9, smi,
     # (b) the spatial partition, S = 2 -------------------------------------
     section["a"], t_sec = time.perf_counter() - t_sec, time.perf_counter()
     S = 2
+    save_at = 8
+
+    def spatial_resume(spr, sp_params, ckpt, P):
+        """A fresh spatial runner loads spr's checkpoint (written before
+        frame save_at) and runs on to frame n. At load every stream is
+        re-triangulated at watermark _max_frame_id, as in the JAX
+        package: the installed edges must equal a fresh host Delaunay of
+        the restored vertex positions and graph membership, and the
+        watermark _max_frame_id. Then no host sync in
+        batched_full_step_spatial on the load's partitions."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            r = MultiStreamRunner(cam, S, params=sp_params,
+                                  mesh=[[dev] * P])
+        t0 = time.perf_counter()
+        r.load_checkpoint(ckpt)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        wm = r._max_frame_id
+        assert wm == save_at - 1, wm
+        st = r.states
+        builder = ms_mod._HostTopologyBuilder(sp_params)
+        uv = st.vtx_uv.cpu().numpy()
+        elig = st.vtx_in_graph.cpu().numpy()
+        edges, ev = st.edges.cpu().numpy(), st.edge_valid.cpu().numpy()
+        for k in range(S):
+            fe, fv = builder.packed_edges(builder.build(uv[k], elig[k], wm))
+            assert np.array_equal(edges[k], fe), f"P={P} stream {k}: edges"
+            assert np.array_equal(ev[k], fv), f"P={P} stream {k}: valid"
+        wms = st.topo_frame_id.cpu().tolist()
+        assert wms == [wm] * S, wms
+        assert all(p is not None for p in r.parts)
+        r_ms, _ = drive(r, S, lo=save_at)
+        b_imgs, b_meta = device_inputs(S)
+        no_sync(lambda: ms_mod.batched_full_step_spatial(
+            r._gstates[0], r.parts[0], b_imgs, b_meta, None, cam=cam,
+            params=r.params, is_pf=False, kf_slot=0))
+        a_st, b_st = r.states, spr.states
+        ev_b = a_st.edge_valid
+        ra, rb = r.get_idepth_maps(), spr.get_idepth_maps()
+        gap = {"map_finite_agreement": float(
+            (np.isfinite(ra) == np.isfinite(rb)).mean()),
+            "edge_q_max_abs": float(
+            (a_st.edge_q - b_st.edge_q)[ev_b].abs().max()),
+            "vtx_x_max_abs": float(
+                (a_st.vtx_x - b_st.vtx_x)[a_st.vtx_in_graph].abs().max())}
+        r.shutdown()
+        return {"saved_before_frame": save_at, "watermark": wm,
+                "edges_equal_fresh_delaunay": True, "load_ms": load_ms,
+                "continued_frames": len(r_ms), "no_host_sync": True,
+                "diff_vs_uninterrupted": gap}
+
     plain = MultiStreamRunner(cam, S, params=params, device=dev)
     with EventTimer(reg_ops, "pd_iterate") as pt:
         p_ms, p_rows = drive(plain, S)
@@ -1984,8 +2334,9 @@ def multi_device_path(seq, params, cam, dev, out, node9, stats9, smi,
             spr = MultiStreamRunner(cam, S, params=sp_params,
                                     mesh=[[dev] * P])
         rc.reset_counters()
+        ckpt = os.path.join(out, f"spatial_P{P}_ckpt")
         with EventTimer(spatial_pd, "pd_iterate_spatial_batched") as st_:
-            s_ms, s_rows = drive(spr, S)
+            s_ms, s_rows = drive(spr, S, save=(save_at, ckpt))
         counts = batched_counts(rc, dev)
         launched = list(spr.group_launches)
         assert all(p is not None for p in spr.parts)
@@ -2017,9 +2368,10 @@ def multi_device_path(seq, params, cam, dev, out, node9, stats9, smi,
             spr._gstates[0], spr.parts[0], b_imgs, b_meta, None, cam=cam,
             params=spr.params, is_pf=False, kf_slot=0))
         sweep = st_.ms()
+        resume = spatial_resume(spr, sp_params, ckpt, P)
         phase("multi_device_spatial", streams=S, parts=P, frames=n,
               card=smi, diff_vs_plain=diff, within_bounds=ok,
-              no_host_sync=True, counts=counts,
+              no_host_sync=True, counts=counts, resume=resume,
               launches_per_group=launched,
               sweep_ms_p50=float(np.percentile(sweep, 50)),
               plain_sweep_ms_p50=float(np.percentile(plain_sweep, 50)),
@@ -2384,12 +2736,13 @@ def last_modules_path(seq, ms4, res4, params, cam, dev, out, smi):
 def viz_path(engine, seq, params, cam, dev, out):
     """Phase 11: the viz modules on phase 4's final engine, and the live
     viewer against a FlameServer on the card."""
+    import importlib.util
     import re
-    import socket
+    import threading
     import urllib.request
     import numpy as np
     import torch
-    from flame_ros_torch.frontends.serve import FlameServer, send_msg
+    from flame_ros_torch.frontends.serve import FlameServer
     from flame_ros_torch.viz import debug_images as dbg
     from flame_ros_torch.viz.export import write_ply_mesh
     from flame_ros_torch.viz.html_viewer import export_html_viewer
@@ -2439,15 +2792,23 @@ def viz_path(engine, seq, params, cam, dev, out):
     assert n_f == int(keep.sum()) == len(data["tris"]) // 3 > 0, n_f
     assert data["texture_png"], "no texture (cv2.imencode)"
 
-    # A FlameServer on the card streams 10 frames to a LiveMeshViewer.
+    # A FlameServer on the card, fed 10 frames by the feeder script
+    # (scripts/stream_synthetic_torch.py, phase 4's sequence rendered on
+    # the card), streams to a LiveMeshViewer.
+    spec = importlib.util.spec_from_file_location(
+        "stream_synthetic_torch",
+        os.path.join(REPO, "scripts", "stream_synthetic_torch.py"))
+    feeder = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(feeder)
     srv = FlameServer(cam, params, port=0, device=dev)
     srv.start()
     viewer = LiveMeshViewer(server_port=srv.port, http_port=0,
                             period_s=0.1).start()
     url = f"http://127.0.0.1:{viewer.http_port}"
-    imgs = torch.clamp(seq.images[:10], 0, 255).to(torch.uint8).cpu().numpy()
-    q, t = seq.poses.q.cpu().numpy(), seq.poses.t.cpu().numpy()
-    c = socket.create_connection(("127.0.0.1", srv.port), timeout=60)
+    fed = []
+    feed = threading.Thread(target=lambda: fed.append(feeder.main(
+        ["--port", str(srv.port), "--frames", "10", "--rate", "10",
+         "--resolution", "vga", "--device", str(dev)]) or True))
 
     def poll_tris():
         """Triangles of the viewer's mesh JSON, None before the first."""
@@ -2462,14 +2823,12 @@ def viz_path(engine, seq, params, cam, dev, out):
     try:
         with urllib.request.urlopen(url + "/", timeout=10) as r:
             assert r.status == 200 and b"mesh.json" in r.read()
-        for i in range(10):
-            send_msg(c, {"type": "frame", "img_id": i,
-                         "time": float(seq.timestamps[i]),
-                         "quat": q[i].tolist(), "trans": t[i].tolist(),
-                         "shape": list(imgs[i].shape), "dtype": "uint8"},
-                     imgs[i].tobytes())
+        feed.start()
+        while feed.is_alive():
             seen.append(poll_tris())
             time.sleep(0.1)
+        feed.join()
+        assert fed == [True], "the feeder failed"
         deadline = time.time() + 60
         while time.time() < deadline:
             seen.append(poll_tris())
@@ -2477,11 +2836,8 @@ def viz_path(engine, seq, params, cam, dev, out):
                 break
             time.sleep(0.2)
     finally:
-        try:
-            send_msg(c, {"type": "stop"})
-            c.close()
-        except OSError:
-            pass
+        if feed.is_alive():
+            feed.join(timeout=60)
         viewer.stop()
         srv.stop()
     got = [s for s in seen if s is not None]
@@ -2490,6 +2846,344 @@ def viz_path(engine, seq, params, cam, dev, out):
           idepthmap_colored_px=int(colored.sum()),
           ply_vertices=n_v, ply_faces=n_f, html_vertices=n_v,
           html_faces=n_f, live_viewer_tris=got)
+
+
+# Phase 14: a poseframe check frame after the third wrap of the keyframe
+# ring (a poseframe every 6 frames, 8 slots: the third wrap is frame 144)
+# and a non-poseframe one after the second.
+ACCEPT_CHECK = {"frame": 97, "poseframe": 150}
+
+
+def accept_tree(name, seq, root):
+    """Write an acceptance run's sequence as its TUM or ASL tree under
+    root, as tests/test_acceptance_stress.py does; the offline runner's
+    arguments that read it back."""
+    from flame_ros_torch.datasets.synthetic import export_asl, export_tum
+    if ACCEPT_RUNS[name]["dataset"] == "tum":
+        assoc, calib = export_tum(seq, os.path.join(root, "tum"))
+        return ["--dataset", "tum", "--input", assoc, "--calib", calib]
+    mav0 = os.path.join(root, "mav0")
+    export_asl(seq, mav0)
+    return ["--dataset", "asl",
+            "--pose-path", os.path.join(mav0, "state_groundtruth_estimate0"),
+            "--rgb-path", os.path.join(mav0, "cam0"),
+            "--depth-path", os.path.join(mav0, "depth0"),
+            "--world-frame", "RDF"]
+
+
+def acceptance_run(name, device, out_dir):
+    """One run of ACCEPT_RUNS through the port's CLI, `offline_runner.
+    main`, on `device` (the synthetic runs render there; tum and asl
+    render there, are written as a tree and read back). The runner's
+    `run_offline` is wrapped to keep its engine and to time each frame on
+    the host clock from its start to the end of its stats read. The id
+    buffer is recomputed (check_idmap) after frame ACCEPT_CHECK["frame"]
+    and on poseframe ACCEPT_CHECK["poseframe"] before its install; on the
+    card, v4 must launch on every frame and v2 and v3 on none (wrapper
+    counts and device work counters). Returns a dict: the CLI's summary
+    line, the run's unrounded metrics, ms per frame, launches, work, the
+    checks and the frame_digest of every frame the run read (tum and asl:
+    of the sequence written as the tree)."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from flame_ros_torch.datasets.synthetic import VGA, make_sequence
+    from flame_ros_torch.frontends import offline_runner
+    from flame_ros_torch.models.engine import Flame
+    from flame_ros_torch.ops import raster_cuda as rc
+    spec = ACCEPT_RUNS[name]
+    dev = torch.device(device)
+    run_dir = os.path.join(out_dir, name)
+    os.makedirs(run_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    digests = []
+    synthetic = spec.get("dataset", "synthetic") == "synthetic"
+    if synthetic:
+        argv = accept_argv(name)
+    else:
+        seq = make_sequence(ACCEPT_FRAMES, VGA, device=dev,
+                            **accept_sequence(name))
+        digests = sequence_digests(seq)
+        argv = accept_tree(name, seq, os.path.join(run_dir, "tree"))
+        del seq
+    t_tree = time.perf_counter() - t0
+    argv += ["--device", str(dev), "--out", run_dir]
+    starts, ends, marks, checks, skip = [], [], [], [], {}
+    held = {}
+    orig = offline_runner.run_offline
+
+    def check(engine, frame, poseframe):
+        t = time.perf_counter()
+        n_px, _ = check_idmap(engine, frame)
+        checks.append({"frame": frame, "poseframe": poseframe,
+                       "poseframes_so_far": engine._num_poseframes,
+                       "order_split_px": n_px})
+        return time.perf_counter() - t
+
+    def frames(engine, it):
+        for i, f in enumerate(it):
+            if i:
+                ends.append(time.perf_counter())
+            if i - 1 == ACCEPT_CHECK["frame"]:
+                # Between two frames' windows: not timed.
+                check(engine, i - 1, False)
+            if synthetic:
+                digests.append(frame_digest(f.gray, f.depth, f.quat,
+                                            f.trans))
+            marks.append(rc.rasterize_tri_ids_v4.launches)
+            starts.append(time.perf_counter())
+            yield f
+        ends.append(time.perf_counter())
+        marks.append(rc.rasterize_tri_ids_v4.launches)
+
+    def traced(it, cam, params, device=None, **kw):
+        engine = Flame(cam.width, cam.height, cam=cam, params=params,
+                       device=device)
+        held["engine"] = engine
+        retri = engine._retriangulate
+
+        def retriangulate():
+            # The poseframe's raster inputs, before its install.
+            # Inside the frame's window: its seconds come off the frame.
+            frame = engine._frame_count - 1
+            if frame == ACCEPT_CHECK["poseframe"]:
+                skip[frame] = check(engine, frame, True)
+            retri()
+
+        engine._retriangulate = retriangulate
+        return orig(frames(engine, it), cam, params, device=device,
+                    engine=engine, **kw)
+
+    rc.reset_counters()
+    line = io.StringIO()
+    offline_runner.run_offline = traced
+    try:
+        with contextlib.redirect_stdout(line):
+            res = offline_runner.main(argv)
+    finally:
+        offline_runner.run_offline = orig
+    launches, work = launch_counts(rc, dev) if dev.type == "cuda" else (
+        {"v4": rc.rasterize_tri_ids_v4.launches,
+         "v2": rc.rasterize_tri_ids_v2.launches,
+         "v3": rc.rasterize_tri_ids_v3.launches}, None)
+    printed = json.loads(line.getvalue().strip().splitlines()[-1])
+    with open(os.path.join(run_dir, "telemetry.jsonl")) as f:
+        health = [json.loads(r)["health"] for r in f]
+    ms = (np.asarray(ends) - np.asarray(starts)) * 1e3
+    for frame, secs in skip.items():
+        ms[frame] -= secs * 1e3
+    per_frame = np.diff(np.asarray(marks))
+    engine = held["engine"]
+    K = engine.params.engine.max_keyframes
+    summary = {"frames": res.frames_processed, "failed": res.frames_failed,
+               "idepth_rmse": res.mean_rmse,
+               "precision": res.mean_precision, "recall": res.mean_recall,
+               "coverage": res.final_coverage, "abs_rel": res.final_abs_rel,
+               "delta1": res.final_delta1}
+    summary = {k: (float(v) if isinstance(v, (float, np.floating)) else v)
+               for k, v in summary.items()}
+    steady = ms[5:]
+    out = {"run": name, "argv": argv[:-4], "summary": summary,
+           "printed": printed, "tree_s": t_tree, "digests": digests,
+           "ms_per_frame_p50": float(np.percentile(steady, 50)),
+           "ms_per_frame_p95": float(np.percentile(steady, 95)),
+           "launches": launches, "work": work, "checks": checks,
+           "health_all_ready": all(h == 1.0 for h in health)}
+    assert printed["frames"] == summary["frames"] == ACCEPT_FRAMES, out
+    assert printed["failed"] == summary["failed"] == 0, out
+    assert len(health) == ACCEPT_FRAMES and out["health_all_ready"], out
+    assert len(digests) == ACCEPT_FRAMES, len(digests)
+    assert [c["frame"] for c in checks] == [ACCEPT_CHECK["frame"],
+                                           ACCEPT_CHECK["poseframe"]], checks
+    assert checks[1]["poseframes_so_far"] > 3 * K, checks
+    if dev.type == "cuda":
+        # v4 on every frame (its wrapper's count moves in each), the
+        # device's own count agreeing, v2 and v3 never.
+        assert len(per_frame) == ACCEPT_FRAMES and per_frame.min() >= 1, \
+            per_frame.tolist()
+        assert launches["v2"] == 0 and launches["v3"] == 0, launches
+        assert work == {"v4": launches["v4"], "v2": 0, "v3": 0}, work
+    else:
+        assert launches == {"v4": 0, "v2": 0, "v3": 0}, launches
+    return out
+
+
+def accept_verdict(name, summary, ref, other=None):
+    """The port's run `summary` against the JAX package's run `ref` of the
+    same frames: rmse, recall and coverage within JAX_BAND; each of the
+    JAX test's gates that the JAX run passes, passed; the gates the JAX
+    run fails listed (the port is held to the JAX run there, by the
+    band). For exposure_b, other = (the port's exposure_a summary, the
+    JAX one): B must beat A on each of EXPOSURE_AB where JAX's B does.
+    Returns (verdict dict, ok)."""
+    diff = {"idepth_rmse": abs(summary["idepth_rmse"] - ref["idepth_rmse"])
+            / ref["idepth_rmse"],
+            "recall": abs(summary["recall"] - ref["recall"]),
+            "coverage": abs(summary["coverage"] - ref["coverage"])}
+    in_band = all(diff[k] <= JAX_BAND[k] for k in diff)
+    port = gate_results(summary, ACCEPT_RUNS[name]["gates"])
+    jax = gate_results(ref, ACCEPT_RUNS[name]["gates"])
+    must = [p for p, j in zip(port, jax) if j[4]]
+    held = [f"{k} {op} {b}" for k, op, b, _, ok in jax if not ok]
+    failed = [f"{k} {op} {b}: {v}" for k, op, b, v, ok in must if not ok]
+    v = {"band_diff": diff, "in_band": in_band,
+         "gates_passed_by_jax": [f"{k} {op} {b}" for k, op, b, *_ in must],
+         "gates_failed": failed, "held_to_jax_run": held,
+         "jax": {k: ref[k] for k in ("idepth_rmse", "precision", "recall",
+                                     "coverage", "abs_rel", "delta1")}}
+    ok = in_band and not failed
+    if other is not None:
+        a, ja = other
+        beats = {k: (summary[k] < a[k] if op == "<" else summary[k] > a[k])
+                 for k, op in EXPOSURE_AB}
+        jax_beats = {k: (ref[k] < ja[k] if op == "<" else ref[k] > ja[k])
+                     for k, op in EXPOSURE_AB}
+        v["beats_exposure_a"], v["jax_beats_exposure_a"] = beats, jax_beats
+        ok = ok and all(beats[k] for k in beats if jax_beats[k])
+    return v, ok
+
+
+def sequence_key(n, kw):
+    """A file name for the n-frame sequence of make_sequence(**kw)."""
+    return "_".join([str(n)] + [f"{k}-{kw[k]}" for k in sorted(kw)])
+
+
+def frame_digest(gray, depth, q, t):
+    """One frame as the engine and the tracker read it: digests of the
+    bytes of its float32 image, GT depth, rotation and translation."""
+    import hashlib
+    import numpy as np
+    out = []
+    for x in (gray, depth, q, t):
+        if hasattr(x, "detach"):
+            x = x.detach().cpu().numpy()
+        out.append(hashlib.sha1(np.ascontiguousarray(x).tobytes())
+                   .hexdigest()[:16])
+    return out
+
+
+def sequence_digests(seq):
+    """frame_digest of every frame of a SyntheticSequence."""
+    q = seq.poses.q.detach().cpu().numpy()
+    t = seq.poses.t.detach().cpu().numpy()
+    return [frame_digest(seq.images[i], seq.depths[i], q[i], t[i])
+            for i in range(len(seq))]
+
+
+def frames_differ(card, cpu):
+    """Per field of frame_digest, the frames whose digests differ between
+    two lists of them (of the same sequence)."""
+    assert len(card) == len(cpu), (len(card), len(cpu))
+    return {f: [i for i, (a, b) in enumerate(zip(card, cpu)) if a[j] != b[j]]
+            for j, f in enumerate(("image", "depth", "q", "t"))}
+
+
+def cpu_frame_digests(jobs, out_dir, threads):
+    """For each (n, kws) of jobs, kws the make_sequence keyword arguments
+    of sequences that differ only in their knobs (texture_gain,
+    exposure_amp), the n-frame sequences rendered on the CPU with
+    `threads` intra-op threads over one rendering of the scene
+    (make_sequences), each one's sequence_digests written to
+    out_dir/<sequence_key>.json."""
+    sys.path.insert(0, REPO)
+    import torch
+    from flame_ros_torch.datasets.synthetic import VGA, make_sequences
+    torch.set_num_threads(threads)
+    for n, kws in jobs:
+        seqs = make_sequences(
+            n, VGA, [(kw["texture_gain"], kw["exposure_amp"]) for kw in kws],
+            motion=kws[0]["motion"], scene=kws[0]["scene"], device="cpu")
+        for kw, seq in zip(kws, seqs):
+            path = os.path.join(out_dir, sequence_key(n, kw) + ".json")
+            with open(path + ".tmp", "w") as f:
+                json.dump(sequence_digests(seq), f)
+            os.replace(path + ".tmp", path)
+
+
+class CpuFrames:
+    """The CPU's frames of every sequence the card's phases read (phase
+    4's 60 frames and each distinct sequence of ACCEPT_RUNS at 200), as
+    frame digests made by cpu_frame_digests in a process of its own,
+    which runs beside the card's phases on `threads` cores, in the order
+    phase 14 asks for them. The JAX package's runs that phases 9, 13 and
+    14 are held to read these frames."""
+
+    def __init__(self, out, threads=4):
+        import multiprocessing
+        self.dir = os.path.join(out, "cpu_frames")
+        shutil.rmtree(self.dir, ignore_errors=True)
+        os.makedirs(self.dir)
+        scenes = {}
+        for name in ACCEPT_RUNS:
+            kw = accept_sequence(name)
+            kws = scenes.setdefault((kw["motion"], kw["scene"]), [])
+            if kw not in kws:
+                kws.append(kw)
+        jobs = [(60, [accept_sequence("default")])] + [
+            (ACCEPT_FRAMES, kws) for kws in scenes.values()]
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=cpu_frame_digests, args=(jobs, self.dir, threads),
+            daemon=True)
+        self.proc.start()
+
+    def digests(self, n, kw, timeout=900.0):
+        """The CPU's digests of the n-frame sequence of kw, waited for."""
+        path = os.path.join(self.dir, sequence_key(n, kw) + ".json")
+        end = time.monotonic() + timeout
+        while not os.path.exists(path):
+            if not self.proc.is_alive() and not os.path.exists(path):
+                raise RuntimeError("the CPU renderer ended with code "
+                                   f"{self.proc.exitcode} before {path}")
+            if time.monotonic() > end:
+                raise TimeoutError(f"no CPU frames {path} in {timeout} s")
+            time.sleep(0.2)
+        with open(path) as f:
+            return json.load(f)
+
+    def close(self):
+        self.proc.join(timeout=60)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join()
+
+
+def acceptance_path(dev, out, smi, cpu_frames):
+    """Phase 14: the ten runs of ACCEPT_RUNS on the card, each reading the
+    CPU's frames bit for bit (every frame's digests against cpu_frames, a
+    CpuFrames) and held to its JAX run of those frames (JAX_ACCEPT_VGA200)
+    by accept_verdict."""
+    t_phase = time.perf_counter()
+    root = os.path.join(out, "accept")
+    runs, fails = {}, []
+    for name in ACCEPT_RUNS:
+        t0 = time.perf_counter()
+        r = acceptance_run(name, dev, root)
+        other = None
+        if name == "exposure_b":
+            other = (runs["exposure_a"]["summary"],
+                     JAX_ACCEPT_VGA200["exposure_a"])
+        verdict, ok = accept_verdict(name, r["summary"],
+                                     JAX_ACCEPT_VGA200[name], other)
+        t1 = time.perf_counter()
+        differ = frames_differ(r["digests"], cpu_frames.digests(
+            ACCEPT_FRAMES, accept_sequence(name)))
+        same = not any(differ.values())
+        runs[name] = r
+        phase("acceptance", run=name, card=smi, ok=ok and same,
+              verdict=verdict, frames_equal_cpu=same,
+              frames_differ=differ, cpu_frames_wait_s=time.perf_counter() - t1,
+              jax_test=ACCEPT_RUNS[name]["test"],
+              seconds=time.perf_counter() - t0,
+              **{k: r[k] for k in ("argv", "summary", "ms_per_frame_p50",
+                                   "ms_per_frame_p95", "launches", "work",
+                                   "checks", "tree_s")})
+        if not (ok and same):
+            fails.append(name)
+    phase("acceptance_total", card=smi, runs=len(runs),
+          v4_launches={k: r["launches"]["v4"] for k, r in runs.items()},
+          seconds=time.perf_counter() - t_phase)
+    assert not fails, f"acceptance runs outside the JAX run: {fails}"
 
 
 def main():
@@ -2538,6 +3232,9 @@ def main():
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, python=sys.version.split()[0],
           tf32_matmul=False, tf32_cudnn=False)
+    # The CPU's frames of every sequence the card's phases read, rendered
+    # beside them (phases 4 and 14 compare).
+    cpu_frames = CpuFrames(OUT)
 
     # 2. kernel build --------------------------------------------------
     t0 = time.perf_counter()
@@ -2665,9 +3362,16 @@ def main():
                 "bbox_pairs": bbox_pairs(torch, *args, H, W)})
     assert np.isfinite(res.mean_rmse) and res.mean_rmse < 0.1, res
     assert res.final_coverage > 0.3, res
+    # The card rendered the CPU's frames, which the JAX runs of phases 9
+    # and 13 read: every frame bit for bit.
+    t0 = time.perf_counter()
+    differ = frames_differ(sequence_digests(seq), cpu_frames.digests(
+        n_frames, accept_sequence("default")))
+    assert not any(differ.values()), differ
     steady = ms[5:]
     phase("main_path", frames=res.frames_processed,
-          render_s=round(t_render, 3),
+          render_s=round(t_render, 3), frames_equal_cpu=True,
+          cpu_frames_wait_s=time.perf_counter() - t0,
           ms_per_frame_p50=float(np.percentile(steady, 50)),
           ms_per_frame_p95=float(np.percentile(steady, 95)),
           ms_first_frame=float(ms[0]),
@@ -2848,6 +3552,10 @@ def main():
 
     # 13. the last modules -----------------------------------------------
     last_modules_path(seq, steady, res, params, VGA, dev, OUT, smi)
+
+    # 14. the external-pose acceptance protocol --------------------------
+    acceptance_path(dev, OUT, smi, cpu_frames)
+    cpu_frames.close()
 
     # Result lines -----------------------------------------------------
     replaces = {"v4": "flame_ros_tpu/ops/raster_pallas.py:458",

@@ -8,6 +8,16 @@ analytically on the port's device: with RDF camera rays r = Kinv (u,v,1)
 depth maps are exact. Textures are multi-octave value noise whose random
 tables come from numpy generators seeded per plane — the same tables as
 the JAX package's.
+
+A sequence gives the engine the same frames on every device, so that a
+run on the card reads the frames the JAX package's reference runs read
+on the CPU: trajectories are made on the host; dot products are written
+out term by term; a division by a constant divides by a tensor (the
+card multiplies by the reciprocal of a Python scalar divisor, one ulp
+away); the spheres (intersection, atan2 and asin of the texture) run in
+float64 and round to float32. `chip_smoke.py` holds every frame that
+its phases 4 and 14 read on the card to the CPU's rendering of it, bit
+for bit (image, depth and pose).
 """
 from __future__ import annotations
 
@@ -105,16 +115,24 @@ def _texture(tu, tv, seed: int, eu: float, ev: float):
         table = torch.from_numpy(
             rng.uniform(-1.0, 1.0, (size, size)).astype(np.float32)).to(
                 tu.device)
-        u = (tu / eu * 0.5 + 0.5) * (size - 1)
-        v = (tv / ev * 0.5 + 0.5) * (size - 1)
+        u = (_div(tu, eu) * 0.5 + 0.5) * (size - 1)
+        v = (_div(tv, ev) * 0.5 + 0.5) * (size - 1)
         val = val + amp * _value_noise_octave(u, v, table)
         total += amp
-    val = val / total
+    val = _div(val, total)
     return torch.clamp(val * 0.5 + 0.5, 0.0, 1.0) * 215.0 + 20.0
 
 
 def _dot(a, b):
-    return torch.sum(a * b, dim=-1)
+    """Over the last axis of 3, term by term (torch.sum's order on the
+    CPU, on every device)."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+
+
+def _div(a, b: float):
+    """a / b for a constant b, as a true division on every device."""
+    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
 
 
 def render_frame(cam: Pinhole, pose_q, pose_t, scene: str = "room"):
@@ -124,7 +142,9 @@ def render_frame(cam: Pinhole, pose_q, pose_t, scene: str = "room"):
     H, W = cam.height, cam.width
     u = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
     v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
-    rays = cam.ray(torch.stack([u, v], dim=-1))
+    # cam.ray, with true divisions.
+    rays = torch.stack([_div(u - cam.cx, cam.fx), _div(v - cam.cy, cam.fy),
+                        torch.ones_like(u)], dim=-1)
     T = SE3(pose_q, pose_t)
     d_w = T.rotate(rays)
     o_w = pose_t
@@ -152,21 +172,25 @@ def render_frame(cam: Pinhole, pose_q, pose_t, scene: str = "room"):
         best_depth = torch.minimum(best_depth, depth)
 
     if scene == "primitives":
+        # In float64, rounded to float32 at the end (module docstring).
+        f64 = torch.float64
+        d64, o64 = d_w.to(f64), o_w.to(f64)
         for (c, r, seed) in _primitive_spheres():
-            c = t(c)
+            c = t(c).to(f64)
             r = float(r)
-            oc = o_w - c
-            a = _dot(d_w, d_w)
-            b = 2.0 * _dot(d_w, oc)
+            oc = o64 - c
+            a = _dot(d64, d64)
+            b = 2.0 * _dot(d64, oc)
             c0 = _dot(oc, oc) - r * r
             disc = b * b - 4.0 * a * c0
             s = (-b - torch.sqrt(torch.clamp(disc, min=0.0))) / (2.0 * a)
             hit = (disc > 0.0) & (s > 0.05)
-            depth_s = torch.where(hit, s, float("inf"))
+            depth_s = torch.where(hit, s, float("inf")).to(torch.float32)
             closer = depth_s < best_depth
-            p = o_w + s[..., None] * d_w - c
-            lon = torch.atan2(p[..., 1], p[..., 0])
-            lat = torch.asin(torch.clamp(p[..., 2] / r, -1.0, 1.0))
+            p = o64 + s[..., None] * d64 - c
+            lon = torch.atan2(p[..., 1], p[..., 0]).to(torch.float32)
+            lat = torch.asin(torch.clamp(_div(p[..., 2], r), -1.0, 1.0)).to(
+                torch.float32)
             tex = _texture(lon, lat, seed, np.pi, np.pi / 2)
             best_val = torch.where(closer, tex, best_val)
             best_depth = torch.minimum(best_depth, depth_s)
@@ -181,7 +205,8 @@ def render_frame(cam: Pinhole, pose_q, pose_t, scene: str = "room"):
 
 def make_trajectory(n_frames: int, motion: str = "strafe",
                     device=None) -> SE3:
-    """Smooth camera trajectory, camera-to-world, RDF world."""
+    """Smooth camera trajectory, camera-to-world, RDF world, made on the
+    host and placed on `device` (the same poses on every device)."""
     ts = np.linspace(0.0, 1.0, n_frames, dtype=np.float32)
     zeros = np.zeros_like(ts)
     if motion == "strafe":
@@ -211,7 +236,10 @@ def make_trajectory(n_frames: int, motion: str = "strafe",
         taus = np.zeros((n_frames, 6), np.float32)
     else:
         raise ValueError(f"unknown motion {motion}")
-    return SE3.exp(taus.astype(np.float32), device=device)
+    poses = SE3.exp(taus.astype(np.float32))
+    if device is None:
+        return poses
+    return SE3(poses.q.to(device), poses.t.to(device))
 
 
 @dataclass
@@ -362,23 +390,38 @@ def make_sequence(n_frames: int = 30, cam: Pinhole = QVGA,
       1 + r*sin(2*pi*i/period) and bias 30*r*sin(2*pi*i/period + 1.3)
       (auto-exposure "hunting"; engine.zero_mean_ssd is the counter).
     """
+    return make_sequences(n_frames, cam, [(texture_gain, exposure_amp)],
+                          motion=motion, fps=fps,
+                          exposure_period=exposure_period, scene=scene,
+                          device=device)[0]
+
+
+def make_sequences(n_frames: int, cam: Pinhole, knobs, motion: str = "strafe",
+                   fps: float = 30.0, exposure_period: float = 50.0,
+                   scene: str = "room", device=None):
+    """make_sequence for each (texture_gain, exposure_amp) of knobs, over
+    one rendering of the scene: the sequences share their depths and
+    poses, and each equals make_sequence's with those knobs."""
     dev = resolve_device(device)
     poses = make_trajectory(n_frames, motion, device=dev)
-    imgs, deps = [], []
+    imgs, deps = [[] for _ in knobs], []
     for i in range(n_frames):
-        g, d = render_frame(cam, poses.q[i], poses.t[i], scene)
-        if texture_gain != 1.0:
-            g = 127.5 + texture_gain * (g - 127.5)
-        if exposure_amp != 0.0:
-            ph = 2.0 * np.pi * i / exposure_period
-            gain = float(1.0 + exposure_amp * np.sin(ph))
-            bias = float(30.0 * exposure_amp * np.sin(ph + 1.3))
-            # In float64, as the JAX package's numpy does (its gain and
-            # bias are float64 scalars); rounded to float32 after the clip.
-            g = gain * g.to(torch.float64) + bias
-        imgs.append(torch.clamp(g, 0.0, 255.0).to(torch.float32))
+        g0, d = render_frame(cam, poses.q[i], poses.t[i], scene)
+        for out, (texture_gain, exposure_amp) in zip(imgs, knobs):
+            g = g0
+            if texture_gain != 1.0:
+                g = 127.5 + texture_gain * (g - 127.5)
+            if exposure_amp != 0.0:
+                ph = 2.0 * np.pi * i / exposure_period
+                gain = float(1.0 + exposure_amp * np.sin(ph))
+                bias = float(30.0 * exposure_amp * np.sin(ph + 1.3))
+                # In float64, as the JAX package's numpy does (its gain
+                # and bias are float64 scalars); rounded to float32 after
+                # the clip.
+                g = gain * g.to(torch.float64) + bias
+            out.append(torch.clamp(g, 0.0, 255.0).to(torch.float32))
         deps.append(d)
-    return SyntheticSequence(
-        cam=cam, images=torch.stack(imgs), depths=torch.stack(deps),
-        poses=poses,
-        timestamps=np.arange(n_frames, dtype=np.float64) / fps)
+    depths = torch.stack(deps)
+    stamps = np.arange(n_frames, dtype=np.float64) / fps
+    return [SyntheticSequence(cam=cam, images=torch.stack(x), depths=depths,
+                              poses=poses, timestamps=stamps) for x in imgs]

@@ -755,20 +755,6 @@ class MultiStreamRunner:
             if parts is not None:
                 self._place_parts(g, parts[sl])
 
-    def _rebuild_parts(self):
-        """The partitions of the installed edge sets, from the current
-        state (a checkpoint does not hold them). Any partition of the
-        installed edges gives the same sweep, so a resumed run equals the
-        uninterrupted one."""
-        builder = _HostTopologyBuilder(self.params)
-        for g, st in enumerate(self._gstates):
-            edges, ev = st.edges.cpu().numpy(), st.edge_valid.cpu().numpy()
-            uv = st.vtx_uv.cpu().numpy()
-            elig = st.vtx_in_graph.cpu().numpy()
-            self._place_parts(g, [builder.partition(edges[s], ev[s], uv[s],
-                                                    elig[s])
-                                  for s in range(len(edges))])
-
     def drain_topologies(self):
         """Block until every in-flight deferred round is installed (call
         before reading final meshes or maps)."""
@@ -796,7 +782,7 @@ class MultiStreamRunner:
         max_vertex_degree, spatial_parts]. In multi-process mode the file
         is `<path>.p<rank>.npz` and `__rows__` lists the global ids of
         the streams it holds. In-flight rounds install first; the spatial
-        partitions are not saved (rebuilt at load). The file is published
+        partitions are not saved (a load re-triangulates). The file is published
         atomically (a temporary name, fsync, rename). Returns its path."""
         self.drain_topologies()
         arrays = {f"leaf_{i}": np.concatenate(
@@ -822,8 +808,13 @@ class MultiStreamRunner:
         """Restore a state written by `save_checkpoint` (here or by the JAX
         package's runner) into a runner with the same stream count,
         capacity params and (multi-process) process layout; rounds in
-        flight for the replaced state are dropped. In spatial mode the
-        partitions are rebuilt from the restored installed edges."""
+        flight for the replaced state are dropped. In spatial mode, as in
+        the JAX package, each of this process's streams is re-triangulated
+        on the host from the restored vertex positions and graph membership
+        at watermark `_max_frame_id`, and that topology is installed with
+        its partitions, as a synchronous poseframe round does. The resumed
+        run then differs from the uninterrupted one (the restored edges
+        and duals are replaced) exactly as the JAX package's does."""
         data = np.load(self._ckpt_file(path))
         caps = data["__caps__"].tolist()
         if caps != self._caps():
@@ -855,7 +846,8 @@ class MultiStreamRunner:
         self._last_idepth = None
         self.parts = [None] * len(self.groups)
         if self.spatial and self._num_poseframes > 0:
-            self._rebuild_parts()
+            self._install_topologies(self._build_topologies(
+                self._snapshot(), None, self._max_frame_id))
 
     def shutdown(self):
         """Stop the worker pools and abandon in-flight rounds

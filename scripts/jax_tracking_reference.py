@@ -2,7 +2,7 @@
 """The JAX package's tracking-mode numbers on the port's rendered frames.
 
     JAX_PLATFORMS=cpu python scripts/jax_tracking_reference.py --ba-refine
-        [--renderer jax] [--port] [--replay N]
+        [--renderer jax] [--port] [--replay N] [--perturb K] [--poses]
 
 Renders the phase-4 sequence of `chip_smoke.py` (room scene, strafe,
 VGA, 60 frames) with the port's renderer on the CPU, runs the JAX
@@ -18,7 +18,12 @@ frames of the JAX CLI). --port also runs the port's
 `run_offline_tracking` on the CPU over the same frames and prints its
 line. --replay N keeps the inputs of the JAX run's first
 N `hybrid_bundle_adjust` calls, runs the port's on the same inputs and
-prints the largest differences of each.
+prints the largest differences of each. --perturb K (K > 0) moves a
+random half of the pixels of every frame one float32 step up (seed K):
+a change at the size of the rounding by which two implementations of the
+same arithmetic differ, given to both packages alike. --poses adds each
+frame's tracked pose (`[img_id, qw, qx, qy, qz, tx, ty, tz]`) to the
+summaries.
 
 Like the port's tests, this script imports both packages; it is not part
 of the port.
@@ -40,7 +45,21 @@ class Frame:
         self.quat, self.trans = q, tr
 
 
-def _summary(res, node, seconds):
+def perturbed(imgs, seed):
+    """imgs with a random half of its pixels one float32 step up."""
+    if seed <= 0:
+        return imgs
+    up = np.random.default_rng(seed).random(imgs.shape) < 0.5
+    return np.where(up, np.nextafter(imgs, np.float32(np.inf)), imgs)
+
+
+def _poses(node):
+    return [[int(i)] + [float(x) for x in np.asarray(p.q).ravel()]
+            + [float(x) for x in np.asarray(p.t).ravel()]
+            for i, _, p in node.trajectory]
+
+
+def _summary(res, node, seconds, poses=False):
     out = {"frames": res.frames_processed, "failed": res.frames_failed,
            "idepth_rmse": res.mean_rmse, "precision": res.mean_precision,
            "recall": res.mean_recall, "coverage": res.final_coverage,
@@ -52,6 +71,8 @@ def _summary(res, node, seconds):
     if node.ba_refine:
         out["ba_solves"] = len(node.ba_costs)
         out["ba_costs"] = [float(c) for c in node.ba_costs]
+    if poses:
+        out["poses"] = _poses(node)
     return {k: (float(v) if isinstance(v, np.floating) else v)
             for k, v in out.items()}
 
@@ -76,6 +97,8 @@ def main(argv=None):
     p.add_argument("--renderer", choices=("port", "jax"), default="port")
     p.add_argument("--port", action="store_true")
     p.add_argument("--replay", type=int, default=0)
+    p.add_argument("--perturb", type=int, default=0)
+    p.add_argument("--poses", action="store_true")
     args = p.parse_args(argv)
     sys.path.insert(0, REPO)
 
@@ -102,7 +125,7 @@ def main(argv=None):
     else:
         seq, deps = jseq, np.asarray(jseq.depths)
         q, t = np.asarray(jseq.poses.q), np.asarray(jseq.poses.t)
-    imgs = gray[args.renderer]
+    imgs = perturbed(gray[args.renderer], args.perturb)
     stamps = [float(s) for s in seq.timestamps]
 
     def frames():
@@ -127,8 +150,9 @@ def main(argv=None):
     res = run_offline_tracking(frames(), cam, FlameParams(),
                                ba_refine=args.ba_refine)
     print(json.dumps({"package": "jax", "renderer": args.renderer,
-                      **_summary(res, nodes[-1],
-                                 time.perf_counter() - t0)}))
+                      "perturb": args.perturb,
+                      **_summary(res, nodes[-1], time.perf_counter() - t0,
+                                 args.poses)}), flush=True)
 
     if args.port or calls:
         import torch
@@ -153,8 +177,10 @@ def main(argv=None):
                     device="cpu")
         print(json.dumps({"package": "torch (CPU)",
                           "renderer": args.renderer,
+                          "perturb": args.perturb,
                           **_summary(res, nodes[-1],
-                                     time.perf_counter() - t0)}))
+                                     time.perf_counter() - t0,
+                                     args.poses)}))
 
 
 if __name__ == "__main__":

@@ -4,10 +4,13 @@ occlusion 80:89; easy and rotation with windowed bundle adjustment; the
 pod-dense configuration with BA), run through the port's `main
 --pose-source tracking` at VGA over 200 frames with the default
 FlameParams (cfg/pod_dense_ba.yaml for the last). Each asserts the JAX
-file's own bounds. The pod-dense gate solves every BA window unsharded
-on one device (the JAX gate routes it through the point-sharded solver,
-which the port does not have); it asserts the same routing facts of the
-solves it can see: every one at the full 16384-point budget, at least 20.
+file's own bounds. The pod-dense gate's BA windows hold the full
+16384-point budget. The port has the point-sharded solver
+(`hybrid_bundle_adjust_sharded`), but on one card the nodelet's auto
+rule (`FlameNodelet.ba_devices`, frontends/nodelet.py:480-500: shard at
+that budget only when two or more cards are visible) keeps every solve
+unsharded, on the one device. The gate asserts the routing facts of the
+unsharded solves it sees: every one at the full budget, at least 20.
 
 Slow (hours on the CPU): left out of the tier-1 run. They run on the card
 where one exists, else on the CPU:

@@ -9,14 +9,17 @@
   two stream groups and on two spatial parts, and the multi-process
   worker's module, leaves "jax" out of sys.modules
   (checked in a fresh interpreter, since the test process itself
-  imports JAX), and no file of it names either in an import;
+  imports JAX), and no file of it (nor chip_smoke.py, nor the port's
+  demo feeder and scripts) names either in an import;
 - importing it turns TF32 off for matmul and cuDNN (the reference pins
   geometry to full f32);
 - its entry points (the multi-process worker `parallel/dist_e2e.py`
-  among them) run on the card unless asked for the CPU, and raise
+  and the demo feeder `scripts/stream_synthetic_torch.py` among them)
+  run on the card unless asked for the CPU, and raise
   rather than fall back to the CPU when there is no card.
 """
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -169,6 +172,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         main(["--dataset", "synthetic", "--frames", "2"])
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--dataset", "tum", "--input", "assoc.txt"])
+    spec = importlib.util.spec_from_file_location(
+        "stream_synthetic_torch",
+        os.path.join(REPO, "scripts", "stream_synthetic_torch.py"))
+    feeder = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(feeder)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        feeder.main(["--port", "0", "--frames", "2"])
     from flame_ros_torch.frontends.nodelet import FlameNodelet
     from flame_ros_torch.frontends.serve import FlameServer
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -214,11 +224,17 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "scripts", "stream_synthetic_torch.py")
 
 
 def test_no_jax_imports_in_port():
-    """No file of the port, and not chip_smoke.py, has an import statement
-    naming jax, jaxlib or flame_ros_tpu."""
+    """No file of the port, not chip_smoke.py and not the port's demo
+    feeder has an import statement naming jax, jaxlib or flame_ros_tpu;
+    the port's demo scripts name neither package."""
+    for sh in ("demo_torch.sh", "demo_live_torch.sh"):
+        with open(os.path.join(REPO, "scripts", sh)) as f:
+            text = f.read()
+        assert "flame_ros_tpu" not in text and "jax" not in text, sh
     for path in sorted(_sources()):
         rel = os.path.relpath(path, REPO)
         with open(path) as f:

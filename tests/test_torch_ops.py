@@ -447,6 +447,32 @@ def _check_render_matches(scene):
     assert gray_ok.mean() > 0.995 and depth_ok.mean() > 0.995
 
 
+def _check_render_device_free(scene):
+    """The port's renderer gives the same frame under the card's
+    arithmetic: there a division by a Python scalar is a multiplication
+    by the scalar's reciprocal, one ulp away. The renderer divides by
+    tensors (true divisions on every device); dividing by Python scalars
+    moved thousands of pixels of a 96x128 frame here."""
+    tp = tsyn.make_trajectory(3, "mav", device="cpu")
+    ref = tsyn.render_frame(TCAM, tp.q[2], tp.t[2], scene)
+    div = torch.Tensor.__truediv__
+
+    def card_div(a, b):
+        if isinstance(b, (int, float)) and a.is_floating_point():
+            one = torch.tensor(1.0, dtype=a.dtype)
+            return a * (one / torch.tensor(b, dtype=a.dtype))
+        return div(a, b)
+
+    torch.Tensor.__truediv__ = card_div
+    try:
+        got = tsyn.render_frame(TCAM, tp.q[2], tp.t[2], scene)
+    finally:
+        torch.Tensor.__truediv__ = div
+    assert all(a.dtype == torch.float32 for a in got)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b), (scene, int((a != b).sum()))
+
+
 def _check_config_tree_matches():
     j = JParams.from_dict({"engine": {"max_features": 300},
                            "regularization": {"nltgv2": {"theta": 0.5}}})
@@ -509,6 +535,7 @@ def test_metrics_match(rng):
 def test_render_matches():
     for scene in ("room", "primitives"):
         _check_render_matches(scene)
+        _check_render_device_free(scene)
 
 
 def test_config_and_delaunay_copies_match(rng):

@@ -28,6 +28,16 @@ makes.
   runner with tests/test_multi_stream.py:196-243's bounds: maps 1e-4,
   vtx_x and edge_q 1e-5, vtx_in_graph equal, stats rtol 1e-3. A part
   layout whose width is not spatial_parts raises.
+- Resuming a spatial checkpoint: the JAX spatial runner's file, saved
+  after frame 8 of its uninterrupted run, loaded into a fresh JAX runner
+  and into a fresh port runner (the JAX NPZ layout), both continued to
+  frame 13. At load each re-triangulates every stream from the restored
+  vertex positions and graph membership at watermark `_max_frame_id`
+  (flame_ros_tpu/parallel/multi_stream.py:689-693): the installed
+  topology equal to JAX's bit for bit, and the resumed port held to the
+  resumed JAX run with the bounds above. Where JAX's resumed run differs
+  from the uninterrupted one by more than a bound, so must the port's
+  (a load that kept the restored edges equals the uninterrupted run).
 """
 import dataclasses
 import warnings
@@ -66,6 +76,7 @@ TCAM = TCam(105.0, 105.0, 63.5, 47.5, W, H)
 SMALL = {"engine": {"max_features": 256, "max_keyframes": 4},
          "input": {"poseframe_subsample_factor": 6}}
 N_FRAMES = 13
+SAVE_AT = 8
 
 
 @pytest.fixture(scope="module")
@@ -265,26 +276,85 @@ def _spatial(params_cls):
         **SMALL, "engine": {**SMALL["engine"], "spatial_parts": 2}})
 
 
-@pytest.fixture(scope="module")
-def jax_spatial(frames):
+def _jse3(q, t):
+    return JSE3(np.asarray(q), np.asarray(t))
+
+
+def _tse3(q, t):
+    return TSE3(torch.from_numpy(q), torch.from_numpy(t))
+
+
+def _jax_runner():
     mesh = jms.make_mesh(jax.devices()[:4], parts=2)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
-        r = jms.MultiStreamRunner(JCAM, num_streams=2,
-                                  params=_spatial(JParams), mesh=mesh)
-    for i in range(N_FRAMES):
-        r.update(_frames(frames, i, lambda q, t: JSE3(np.asarray(q),
-                                                      np.asarray(t))))
-    assert r.parts is not None
+        return jms.MultiStreamRunner(JCAM, num_streams=2,
+                                     params=_spatial(JParams), mesh=mesh)
+
+
+def _result(r, to_np):
+    st = r.states
     return dict(maps=r.get_idepth_maps(), stats=r.flush_stats(),
-                x=np.asarray(r.states.vtx_x),
-                g=np.asarray(r.states.vtx_in_graph),
-                q=np.asarray(r.states.edge_q),
-                ev=np.asarray(r.states.edge_valid))
+                x=to_np(st.vtx_x), g=to_np(st.vtx_in_graph),
+                q=to_np(st.edge_q), ev=to_np(st.edge_valid))
+
+
+def _topology(st, to_np):
+    return {k: to_np(getattr(st, k)) for k in
+            ("edges", "edge_valid", "tris", "tri_valid", "inc_edges",
+             "inc_sign", "topo_frame_id")}
+
+
+@pytest.fixture(scope="module")
+def jax_spatial(frames, tmp_path_factory):
+    """The JAX spatial runner over N_FRAMES frames, its checkpoint after
+    frame SAVE_AT, and a fresh JAX runner resumed from that file to
+    N_FRAMES (its topology right after the load kept)."""
+    r = _jax_runner()
+    ckpt = str(tmp_path_factory.mktemp("spatial_ckpt") / "jax_spatial")
+    for i in range(N_FRAMES):
+        if i == SAVE_AT:
+            ckpt = r.save_checkpoint(ckpt)
+        r.update(_frames(frames, i, _jse3))
+    assert r.parts is not None
+    out = _result(r, np.asarray)
+    resumed = _jax_runner()
+    resumed.load_checkpoint(ckpt)
+    loaded = _topology(resumed.states, np.asarray)
+    for i in range(SAVE_AT, N_FRAMES):
+        resumed.update(_frames(frames, i, _jse3))
+    return dict(out, ckpt=ckpt, loaded=loaded,
+                resumed=_result(resumed, np.asarray))
+
+
+def _assert_close(got, ref):
+    """The runner bounds of tests/test_multi_stream.py:196-243."""
+    ma, mb = got["maps"], ref["maps"]
+    both = np.isfinite(ma) & np.isfinite(mb)
+    assert (np.isfinite(ma) == np.isfinite(mb)).mean() > 0.999
+    assert np.abs(ma - mb)[both].max() < 1e-4
+    g = got["g"]
+    np.testing.assert_array_equal(g, ref["g"])
+    np.testing.assert_allclose(got["x"][g], ref["x"][g], rtol=0, atol=1e-5)
+    ev = got["ev"]
+    np.testing.assert_allclose(got["q"][ev], ref["q"][ev], rtol=0,
+                               atol=1e-5)
+    for s, (a, b) in enumerate(zip(got["stats"], ref["stats"])):
+        for k in ("coverage", "num_tris", "nltgv2_total_data_cost"):
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-3, atol=1e-3,
+                                       err_msg=f"stream {s}: {k}")
+
+
+def _gaps(a, b):
+    """The largest differences of two results, in the bounds' terms."""
+    g, ev = b["g"], b["ev"]
+    both = np.isfinite(a["maps"]) & np.isfinite(b["maps"])
+    return {"maps": float(np.abs(a["maps"] - b["maps"])[both].max()),
+            "x": float(np.abs(a["x"] - b["x"])[g].max()),
+            "q": float(np.abs(a["q"] - b["q"])[ev].max())}
 
 
 def test_spatial_runner_matches_plain_and_jax(frames, jax_spatial):
-    tse3 = lambda q, t: TSE3(torch.from_numpy(q), torch.from_numpy(t))
     with pytest.warns(RuntimeWarning, match="not been shown to pay"):
         sp = tms.MultiStreamRunner(TCAM, 2, params=_spatial(TParams),
                                    mesh=[["cpu", "cpu"]])
@@ -292,7 +362,7 @@ def test_spatial_runner_matches_plain_and_jax(frames, jax_spatial):
                                   device="cpu")
     installs = 0
     for i in range(N_FRAMES):
-        f = _frames(frames, i, tse3)
+        f = _frames(frames, i, _tse3)
         assert sp.update(f) and plain.update(f)
         installs += i % 6 == 0
     assert installs == 3 and sp.parts[0] is not None
@@ -301,22 +371,7 @@ def test_spatial_runner_matches_plain_and_jax(frames, jax_spatial):
         assert torch.equal(a, b)
     assert sp.flush_stats() == plain.flush_stats()
 
-    ref = jax_spatial
-    ma, mb = sp.get_idepth_maps(), ref["maps"]
-    both = np.isfinite(ma) & np.isfinite(mb)
-    assert (np.isfinite(ma) == np.isfinite(mb)).mean() > 0.999
-    assert np.abs(ma - mb)[both].max() < 1e-4
-    g = sp.states.vtx_in_graph.numpy()
-    np.testing.assert_array_equal(g, ref["g"])
-    np.testing.assert_allclose(sp.states.vtx_x.numpy()[g], ref["x"][g],
-                               rtol=0, atol=1e-5)
-    ev = sp.states.edge_valid.numpy()
-    np.testing.assert_allclose(sp.states.edge_q.numpy()[ev], ref["q"][ev],
-                               rtol=0, atol=1e-5)
-    for s, (a, b) in enumerate(zip(sp.flush_stats(), ref["stats"])):
-        for k in ("coverage", "num_tris", "nltgv2_total_data_cost"):
-            np.testing.assert_allclose(a[k], b[k], rtol=1e-3, atol=1e-3,
-                                       err_msg=f"stream {s}: {k}")
+    _assert_close(_result(sp, torch.Tensor.numpy), jax_spatial)
     with pytest.raises(ValueError, match="width"):
         tms.MultiStreamRunner(TCAM, 2, params=_spatial(TParams),
                               mesh=[["cpu"] * 4])
@@ -325,3 +380,28 @@ def test_spatial_runner_matches_plain_and_jax(frames, jax_spatial):
     with pytest.warns(RuntimeWarning):
         assert tms.MultiStreamRunner(TCAM, 2, params=four,
                                      mesh=[["cpu"] * 4]).spatial
+
+
+def test_spatial_resume_matches_jax(frames, jax_spatial):
+    with pytest.warns(RuntimeWarning, match="not been shown to pay"):
+        sp = tms.MultiStreamRunner(TCAM, 2, params=_spatial(TParams),
+                                   mesh=[["cpu", "cpu"]])
+    sp.load_checkpoint(jax_spatial["ckpt"])
+    assert sp._max_frame_id == SAVE_AT - 1 and sp.parts[0] is not None
+    loaded = _topology(sp.states, torch.Tensor.numpy)
+    for k, ref in jax_spatial["loaded"].items():
+        np.testing.assert_array_equal(loaded[k], ref, err_msg=k)
+    assert (loaded["topo_frame_id"] == SAVE_AT - 1).all()
+    for i in range(SAVE_AT, N_FRAMES):
+        assert sp.update(_frames(frames, i, _tse3))
+    got, ref = _result(sp, torch.Tensor.numpy), jax_spatial["resumed"]
+    _assert_close(got, ref)
+    # The reinstall is what makes the resumed run differ from the
+    # uninterrupted one: wherever JAX's does beyond a bound, the port's
+    # does too.
+    bound = {"maps": 1e-4, "x": 1e-5, "q": 1e-5}
+    jax_gap, port_gap = _gaps(ref, jax_spatial), _gaps(got, jax_spatial)
+    moved = [k for k in bound if jax_gap[k] > bound[k]]
+    assert moved, jax_gap
+    for k in moved:
+        assert port_gap[k] > bound[k], (k, port_gap, jax_gap)

@@ -179,7 +179,30 @@ Phases, each printed as one line:
    coverage within JAX_BAND, every gate of the JAX test that the JAX run
    passes passed (the ones it fails printed, the run held to JAX's
    there), exposure B beating A as in JAX; ms/frame p50/p95 per run
-   beside the card's name and power limit.
+   beside the card's name and power limit;
+15. the tracking-mode acceptance protocol of
+   tests/test_acceptance_tracking.py (TRACK_ACCEPT_RUNS: easy, easy with
+   BA, low texture, rotation, rotation with BA, mav, occlusion 80:89 and
+   the pod-dense configuration cfg/pod_dense_ba.yaml with BA; VGA, 200
+   frames, `--pose-source tracking`) through the port's CLI, four runs
+   at a time in four processes on the card (TRACK_PARTS), every frame
+   equal bit for bit to the CPU's: 0 failed engine frames, v4 launched
+   on every tracked frame and v2 and v3 never, the id buffer after frame
+   97 and after a poseframe past the third ring wrap equal to the plain
+   v4 version's recomputation (T = 32768 for pod-dense); each run held to
+   the JAX package's CPU runs of its frames (track_verdict): up to the
+   frame where its runs on frames one float32 step apart part from the
+   unmoved run (JAX_TRACK_ACCEPT), each pose no further from the unmoved
+   run's than those runs' poses are, plus 1e-4; the first three BA costs
+   within 1e-3 relative of those runs' costs; then rmse, recall,
+   coverage, ATE, RPE and the solves within phase 8's bands about the
+   runs' spread
+   (JAX_TRACK_ACCEPT_SPREAD), every gate of the JAX test that the JAX run
+   passes passed; pod-dense's solves unsharded, at least 20, each at
+   16384 points, and whether the TPU v4's slab budgets would hold there;
+   ms/frame p50/p95, `hybrid_bundle_adjust` ms, launches and busy ms a
+   call, and v4 timed alone at pod density beside its bound, by the
+   card's name and power limit.
 
 Any failure exits non-zero. The line before the last is the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`; before
@@ -437,6 +460,916 @@ JAX_ACCEPT_VGA200 = {
         "delta1": 0.9608711004257202, "seconds": 226.4},
 }
 EXPOSURE_AB = (("idepth_rmse", "<"), ("recall", ">"), ("abs_rel", "<"))
+# The tracking-mode acceptance protocol of tests/test_acceptance_tracking.py:
+# VGA, 200 frames, `--pose-source tracking`, default FlameParams but for
+# pod_dense. Per run: the `make_sequence` keyword arguments that differ
+# from the default sequence, the offline runner's extra arguments, the
+# JAX test, and that test's asserts on the runner's summary, quoted as
+# gates (a bound (f, key) reads f * summary[key]). pod_dense also spies on
+# the BA solves: at least `solves_min`, each at `ba_points` points.
+TRACK_ACCEPT_RUNS = {
+    "easy": dict(
+        seq={}, args=(), test="tests/test_acceptance_tracking.py:60",
+        gates=(("frames", "==", 200), ("failed", "==", 0),
+               ("ate_rmse", "<", (0.005, "gt_path_length")),
+               ("ate_rmse", "<", 0.01), ("idepth_rmse", "<", 0.05),
+               ("precision", ">", 0.95), ("recall", ">", 0.82),
+               ("rpe_trans_rmse", "<", 0.003),
+               ("rpe_rot_rmse_deg", "<", 0.05))),
+    "easy_ba": dict(
+        seq={}, args=("--ba-refine",),
+        test="tests/test_acceptance_tracking.py:79",
+        gates=(("frames", "==", 200), ("failed", "==", 0),
+               ("ate_rmse", "<", (0.008, "gt_path_length")),
+               ("ate_rmse_sim3", "<", 0.01), ("idepth_rmse", "<", 0.05),
+               ("recall", ">", 0.82))),
+    "low_texture": dict(
+        seq=dict(texture_gain=0.3), args=(),
+        test="tests/test_acceptance_tracking.py:91",
+        gates=(("frames", "==", 200), ("failed", "==", 0),
+               ("ate_rmse", "<", (0.01, "gt_path_length")),
+               ("idepth_rmse", "<", 0.06), ("recall", ">", 0.85),
+               ("rpe_rot_rmse_deg", "<", 0.4))),
+    "rotation": dict(
+        seq=dict(motion="rotation"), args=(),
+        test="tests/test_acceptance_tracking.py:103",
+        gates=(("frames", "==", 200), ("failed", "==", 0),
+               ("rpe_rot_rmse_deg", "<", 0.03),
+               ("rpe30_rot_rmse_deg", "<", 0.5),
+               ("rpe_trans_rmse", "<", 0.003), ("ate_rmse_sim3", "<", 0.01),
+               ("ate_rmse", "<", 0.03), ("recall", ">", 0.73),
+               ("idepth_rmse", "<", 0.06))),
+    "rotation_ba": dict(
+        seq=dict(motion="rotation"), args=("--ba-refine",),
+        test="tests/test_acceptance_tracking.py:124",
+        gates=(("frames", "==", 200), ("failed", "==", 0),
+               ("rpe_rot_rmse_deg", "<", 0.03),
+               ("rpe30_rot_rmse_deg", "<", 0.5),
+               ("ate_rmse_sim3", "<", 0.015), ("ate_rmse", "<", 0.03),
+               ("recall", ">", 0.75))),
+    "mav": dict(
+        seq=dict(motion="mav"), args=(),
+        test="tests/test_acceptance_tracking.py:138",
+        gates=(("frames", "==", 200), ("failed", "==", 0),
+               ("ate_rmse", "<", (0.007, "gt_path_length")),
+               ("rpe_rot_rmse_deg", "<", 0.05),
+               ("rpe_trans_rmse", "<", 0.003), ("recall", ">", 0.70),
+               ("idepth_rmse", "<", 0.06))),
+    "occlusion": dict(
+        seq={}, args=("--occlude", "80:89"),
+        test="tests/test_acceptance_tracking.py:152",
+        gates=(("track_failed_frames", ">=", 10),
+               ("track_failed_frames", "<=", 18),
+               ("frames", ">=", 182), ("failed", "==", 0),
+               ("ate_rmse", "<", (0.005, "gt_path_length")),
+               ("idepth_rmse", "<", 0.05), ("recall", ">", 0.85))),
+    "pod_dense": dict(
+        seq={}, args=("--ba-refine", "--config", "cfg/pod_dense_ba.yaml"),
+        test="tests/test_acceptance_tracking.py:177",
+        gates=(("frames", "==", 200), ("failed", "==", 0),
+               ("track_failed_frames", "<=", 4), ("ate_rmse", "<", 0.18),
+               ("idepth_rmse", "<", 0.15), ("recall", ">", 0.65)),
+        solves_min=20, ba_points=16384),
+}
+
+
+# The JAX package on the CPU over the port's rendered frames of each
+# TRACK_ACCEPT_RUNS run, unmoved (K = 0) and with a random half of the
+# pixels one float32 step up (K = 1..3; rotation_ba and pod_dense
+# K = 1..7, easy_ba and rotation K = 1..15), one XLA thread, one CPU
+# device (so its BA takes the unsharded route, as the port's on one card):
+#   OMP_NUM_THREADS=1 JAX_PLATFORMS=cpu XLA_FLAGS="--xla_cpu_multi_thread_eigen=false \
+#       intra_op_parallelism_threads=1" python scripts/jax_tracking_reference.py \
+#       --run NAME --perturb 0,1,2,3 > NAME.jsonl
+# (further K, and pod_dense's, in processes of their own: --perturb 4,5
+# and so on), then
+#   python scripts/jax_tracking_reference.py --collect *.jsonl
+# JAX_TRACK_ACCEPT is each unmoved run's summary, its first three BA
+# costs, its BA route, its parting frame (the first frame at which a
+# perturbed run's pose leaves it by more than 1e-4; None: none did) and
+# its poses ([img_id, qw, qx, qy, qz, tx, ty, tz, d], d the largest
+# distance of a perturbed run's pose from it) before that frame.
+# JAX_TRACK_ACCEPT_SPREAD is the smallest and largest value of each metric
+# (and of each of the first three BA costs) over the runs. Phase 15
+# and tests/test_torch_acceptance_tracking.py hold the port to both
+# (track_verdict).
+JAX_TRACK_ACCEPT = {
+    "easy": {
+        "frames": 200,
+        "failed": 0,
+        "idepth_rmse": 0.02860487670637667,
+        "precision": 1.0,
+        "recall": 0.854310693359375,
+        "coverage": 0.8516764640808105,
+        "ate_rmse": 0.004394539662384737,
+        "ate_rmse_sim3": 0.0041383467810793585,
+        "gt_path_length": 2.643495964324188,
+        "rpe_trans_rmse": 0.0005981114888364587,
+        "rpe_rot_rmse_deg": 0.010937679725570306,
+        "rpe30_trans_rmse": 0.005570244650839392,
+        "rpe30_rot_rmse_deg": 0.07936589630828049,
+        "track_failed_frames": 0,
+        "relocalizations": 0,
+        "perturbed": [1, 2, 3],
+        "parting_frame": 101,
+        "ba_route": {'unsharded': {'solves': 0, 'points': []}, 'sharded': {'solves': 0, 'points': []}},
+        "jax_devices": 1,
+        "poses": [
+            [0, 1, 0, 0, 0, 0, 0, 0, 0],
+            [1, 0.99999994, -8.27687472e-06, 0.000755275483, -7.85837801e-06, 0.019152442, 4.75551533e-05, 0.000600933447, 1.04e-07],
+            [2, 0.999999464, -8.12580129e-06, 0.00156834931, -1.7059956e-05, 0.0378730111, 0.000304372632, 0.00138348714, 4.03e-08],
+            [3, 0.999998987, -6.86746216e-06, 0.00230144686, -1.61922908e-05, 0.0571339875, 0.000736193557, 0.00183815463, 7.82e-08],
+            [4, 0.999998987, -4.00727804e-05, 0.00313823391, -5.10179962e-05, 0.0756388158, 0.00109161437, 0.00255503971, 5.96e-08],
+            [5, 1.00000143, -2.04989447e-05, 0.00390937831, -4.45743281e-05, 0.0944528729, 0.00201592711, 0.0033393479, 7.29e-08],
+            [6, 1.00001109, -1.7966644e-05, 0.00467414828, -3.31264782e-05, 0.113268547, 0.00305753225, 0.00380603038, 1.64e-07],
+            [7, 1.00003791, -1.76307731e-05, 0.00545943761, -3.28533388e-05, 0.131668001, 0.00419698888, 0.00428148033, 2.98e-08],
+            [8, 1.0000335, -1.49820744e-05, 0.0061965026, -1.85847584e-05, 0.150231868, 0.00568229798, 0.00449499208, 2.84e-07],
+            [9, 1.00002885, -3.36751577e-06, 0.00691233249, -2.0238469e-05, 0.168784916, 0.00713743456, 0.00520266313, 1.98e-07],
+            [10, 1.00002372, 6.5501692e-05, 0.00762453722, -2.41089947e-06, 0.187124819, 0.00936253741, 0.00581489597, 1.22e-07],
+            [11, 1.00001836, 7.53114e-05, 0.00828711223, 3.69779445e-06, 0.205542237, 0.0113258325, 0.0064281188, 2.23e-07],
+            [12, 1.00001121, 3.55017582e-05, 0.0090747457, -1.02448448e-05, 0.222940043, 0.0130478386, 0.00668707397, 3.17e-07],
+            [13, 1.0000031, -7.74539876e-06, 0.00990559347, -2.4537072e-05, 0.239880815, 0.0149277747, 0.00661520846, 2.76e-07],
+            [14, 0.99999392, -3.37218953e-05, 0.0107932538, -5.90250202e-05, 0.256243765, 0.0171135142, 0.00658704108, 1.51e-07],
+            [15, 0.999985933, -8.48775962e-05, 0.0115087926, -4.18134769e-05, 0.273171842, 0.0192892347, 0.00673738495, 3.46e-07],
+            [16, 0.999978185, -7.59197937e-05, 0.0121926721, -8.75800833e-05, 0.290097058, 0.0219596885, 0.00711824372, 2.75e-07],
+            [17, 0.999969661, -0.000136183138, 0.012896955, -0.000111631518, 0.30632472, 0.0244266316, 0.00707619078, 3.28e-07],
+            [18, 0.999961078, -0.000155400223, 0.0136041036, -8.94899131e-05, 0.32224077, 0.0272704307, 0.00743435696, 2.33e-07],
+            [19, 0.99995482, -8.42023073e-05, 0.0142200384, -0.000123400299, 0.338282347, 0.0307930652, 0.00782761071, 2.24e-07],
+            [20, 0.999947011, -9.79757751e-05, 0.0147496052, -0.000119575576, 0.354384989, 0.033878874, 0.00816829503, 4.27e-07],
+            [21, 0.99993521, -0.000179699258, 0.015512282, -0.000179411814, 0.368622601, 0.0368352756, 0.00846952852, 4.15e-07],
+            [22, 0.999924839, -0.000145209036, 0.0161323026, -0.000147400307, 0.383356482, 0.0407023653, 0.00851373281, 3.56e-07],
+            [23, 0.999914467, -4.68759972e-05, 0.0166772138, -0.000161960998, 0.39823243, 0.0449720733, 0.0087598972, 3.59e-07],
+            [24, 0.999901116, -0.00015757051, 0.0172636863, -0.000168687271, 0.412172318, 0.0480696633, 0.00897955056, 3.41e-07],
+            [25, 0.999882519, -0.000132583431, 0.0178640299, -0.000154327689, 0.425510824, 0.052190505, 0.00914909504, 5.31e-07],
+            [26, 0.999871075, -0.00010125251, 0.018492328, -0.000149845466, 0.43814978, 0.0563875325, 0.00939934235, 7.11e-07],
+            [27, 0.999861956, -0.000197810441, 0.0189852491, -0.000191375104, 0.451119602, 0.059998855, 0.00937347952, 5.24e-07],
+            [28, 0.999851167, -0.000183218173, 0.0195555873, -0.000207782956, 0.462939471, 0.0643910915, 0.00985810906, 5.12e-07],
+            [29, 0.999842644, -0.000224062562, 0.0200021621, -0.000206410681, 0.47514984, 0.0685566589, 0.00977495592, 6.68e-07],
+            [30, 0.999834061, -0.000222671748, 0.0204722155, -0.000203443822, 0.486479163, 0.0731175765, 0.0100599863, 5.91e-07],
+            [31, 0.999826968, -0.000197064452, 0.020917654, -0.000191328436, 0.497366726, 0.0780020282, 0.0101206396, 6.12e-07],
+            [32, 0.999817789, -0.000147851635, 0.0213539563, -0.000155836635, 0.507714212, 0.0830498934, 0.0105044665, 6.1e-07],
+            [33, 0.999808252, -0.000202572512, 0.0217884686, -0.000173103006, 0.517343462, 0.0875065029, 0.0106325056, 6.69e-07],
+            [34, 0.99980098, -0.000209975304, 0.0221064147, -0.000191244719, 0.527142704, 0.0923559889, 0.0107830605, 8.52e-07],
+            [35, 0.999791205, -0.000295523496, 0.0225130059, -0.000208151265, 0.535658717, 0.0968529508, 0.0108812563, 7.08e-07],
+            [36, 0.999782264, -0.00035536103, 0.0228276141, -0.000219947484, 0.54417026, 0.101528928, 0.011246697, 7.93e-07],
+            [37, 0.999770224, -0.000281010638, 0.0231860373, -0.00020725916, 0.551705301, 0.107247047, 0.0116963657, 7.12e-07],
+            [38, 0.999764264, -0.00030051131, 0.0234474465, -0.00021047768, 0.559169531, 0.112343952, 0.011798935, 8.05e-07],
+            [39, 0.999758005, -0.000275858358, 0.0237117056, -0.000200884286, 0.565825284, 0.117763646, 0.012549689, 7.39e-07],
+            [40, 0.999751389, -0.000327524205, 0.0239954758, -0.000249023928, 0.571627736, 0.122811735, 0.012701205, 7.53e-07],
+            [41, 0.999747634, -0.000311497657, 0.0241700355, -0.000217087087, 0.577478886, 0.128391832, 0.0133655546, 8.52e-07],
+            [42, 0.999742031, -0.000301623892, 0.0244374909, -0.0002226941, 0.582030356, 0.133953989, 0.0135223251, 7.9e-07],
+            [43, 0.999739528, -0.000329883216, 0.0246386472, -0.000240798734, 0.586273372, 0.139258951, 0.0138008967, 8.25e-07],
+            [44, 0.999736488, -0.000386677915, 0.024756005, -0.000282459019, 0.590241015, 0.144515336, 0.014075892, 8.79e-07],
+            [45, 0.999731243, -0.000398981851, 0.0249709934, -0.000312034914, 0.592916787, 0.150000483, 0.0147377225, 8.37e-07],
+            [46, 0.999729395, -0.000319015613, 0.0250339992, -0.000283674221, 0.595628142, 0.156211019, 0.0156325959, 8.85e-07],
+            [47, 0.999726534, -0.000377921155, 0.0251347255, -0.000317035709, 0.597620606, 0.161467493, 0.0152536687, 7.58e-07],
+            [48, 0.999724925, -0.00030338479, 0.0251580831, -0.000266453746, 0.599154711, 0.167534038, 0.016722681, 8.87e-07],
+            [49, 0.99972254, -0.000305036752, 0.0251587741, -0.000261836918, 0.60002476, 0.173283428, 0.0175580643, 7.9e-07],
+            [50, 0.999722004, -0.000309409632, 0.0251802262, -0.0002834404, 0.600178421, 0.179137141, 0.0184519365, 8.88e-07],
+            [51, 0.999721467, -0.00037157652, 0.0252063833, -0.000277894258, 0.599380374, 0.184400082, 0.0192316677, 7.92e-07],
+            [52, 0.999724388, -0.000268787117, 0.025093684, -0.000291224802, 0.598635793, 0.190773085, 0.0200240463, 7.15e-07],
+            [53, 0.99972713, -0.000224256757, 0.0250004698, -0.000303813606, 0.597305536, 0.196672484, 0.0206807479, 9.39e-07],
+            [54, 0.999728858, -0.000283114146, 0.0249636658, -0.000272158184, 0.594737172, 0.201986089, 0.0215327814, 7.15e-07],
+            [55, 0.999735177, -0.000282251305, 0.024804553, -0.000241779897, 0.591994226, 0.207626402, 0.0228348654, 1.1e-06],
+            [56, 0.999740005, -0.000288369047, 0.0246104393, -0.000216190485, 0.588796735, 0.213368639, 0.0239180103, 1.23e-06],
+            [57, 0.999741495, -0.000323462591, 0.0245500002, -0.000222125949, 0.584104896, 0.218635038, 0.0245892685, 1.59e-06],
+            [58, 0.999746919, -0.000306333764, 0.0243281014, -0.000223287978, 0.579751432, 0.224236593, 0.025489362, 2.21e-06],
+            [59, 0.999753058, -0.000248682249, 0.0240935478, -0.000233797706, 0.57477212, 0.230135441, 0.02660124, 2.67e-06],
+            [60, 0.999759793, -0.000326696376, 0.0238304939, -0.000223608396, 0.56907618, 0.235116959, 0.027420748, 2.44e-06],
+            [61, 0.999766886, -0.000343660184, 0.0236023683, -0.000222445844, 0.562508404, 0.240351856, 0.0285560545, 3.28e-06],
+            [62, 0.999774754, -0.000319841725, 0.0232644528, -0.00019343711, 0.555794418, 0.245903179, 0.0297389943, 3.8e-06],
+            [63, 0.999781549, -0.000377232936, 0.0229772106, -0.000188068938, 0.548051, 0.250782639, 0.0307535008, 4.47e-06],
+            [64, 0.999790251, -0.000372593116, 0.0226028282, -0.000181533833, 0.540350795, 0.255861789, 0.0318553783, 4.89e-06],
+            [65, 0.999799609, -0.000338947022, 0.0222065505, -0.00019311544, 0.532199144, 0.261190265, 0.0329465233, 6.2e-06],
+            [66, 0.999808252, -0.000378400291, 0.0218541604, -0.000212664207, 0.522789776, 0.266137093, 0.0343882963, 7.69e-06],
+            [67, 0.999819219, -0.000344827888, 0.0214667916, -0.000192439489, 0.513055146, 0.271264642, 0.0356066152, 9.72e-06],
+            [68, 0.999830365, -0.000321600062, 0.0209488459, -0.000177091148, 0.503443539, 0.276332825, 0.0366346389, 1.16e-05],
+            [69, 0.999839544, -0.000287927949, 0.0205146875, -0.000129201813, 0.492786139, 0.281322449, 0.038083896, 2.03e-05],
+            [70, 0.999848247, -0.000268447446, 0.020103408, -0.000153370958, 0.481176108, 0.286091447, 0.0392913297, 1.06e-05],
+            [71, 0.999859154, -0.000271619909, 0.0196075272, -0.000173301902, 0.469730824, 0.290622532, 0.0404706672, 1.27e-05],
+            [72, 0.999871194, -0.000326854934, 0.019105874, -0.000195893779, 0.457646459, 0.294727236, 0.0417306274, 1.12e-05],
+            [73, 0.999888599, -0.00034590991, 0.0185018107, -0.000164986501, 0.445589334, 0.2989856, 0.0430280752, 1.64e-05],
+            [74, 0.999900877, -0.000337945356, 0.0178302247, -0.000125103747, 0.433295369, 0.303321004, 0.0446537547, 1.27e-05],
+            [75, 0.999909937, -0.000407759071, 0.0173236337, -0.000135893191, 0.419490159, 0.30702737, 0.0457957722, 1.53e-05],
+            [76, 0.999920249, -0.000299403298, 0.0167399626, -0.000162989672, 0.405627221, 0.311522484, 0.047189597, 2.02e-05],
+            [77, 0.999931514, -0.000348423782, 0.0161023159, -0.00010754395, 0.391615152, 0.315046847, 0.048332639, 4.6e-05],
+            [78, 0.99994272, -0.000369140878, 0.0155070005, -0.000129827647, 0.376829743, 0.318715364, 0.0496440232, 2.16e-05],
+            [79, 0.999957144, -0.000289745047, 0.0148864407, -0.000126175786, 0.361678213, 0.322667986, 0.0508891381, 1.4e-05],
+            [80, 0.999967337, -0.000326748064, 0.0141887087, -9.33239498e-05, 0.346401334, 0.325814515, 0.0521353558, 1.54e-05],
+            [81, 0.999976635, -0.000322982291, 0.0135379853, -0.000110776935, 0.33057797, 0.329136997, 0.0532651916, 1.82e-05],
+            [82, 0.999986172, -0.000308882387, 0.0128429001, -6.46112894e-05, 0.314665407, 0.332345754, 0.0543103889, 1.71e-05],
+            [83, 0.99999541, -0.000311685813, 0.0122086257, -0.000113914357, 0.29789418, 0.335259616, 0.0557472296, 1.51e-05],
+            [84, 1.00000608, -0.000304006098, 0.0115360674, -6.27105837e-05, 0.281022042, 0.337981492, 0.0567064844, 2.22e-05],
+            [85, 1.00002182, -0.000296255341, 0.010710557, -8.51605e-05, 0.264692515, 0.34075129, 0.0581995286, 2.63e-05],
+            [86, 1.00002897, -0.000327768095, 0.0100149466, -7.92177743e-05, 0.247192264, 0.343053609, 0.0592940152, 3.05e-05],
+            [87, 1.00003624, -0.000253652222, 0.00929720793, -4.4847995e-05, 0.229527697, 0.345736772, 0.0604075789, 3.35e-05],
+            [88, 1.00004375, -0.000302123575, 0.0084911976, -8.60587825e-05, 0.212060049, 0.347652644, 0.0615296066, 3.69e-05],
+            [89, 1.00005043, -0.00032205641, 0.0077815135, -5.71892779e-05, 0.193904549, 0.349485248, 0.0624838471, 3.2e-05],
+            [90, 1.00005889, -0.000278782885, 0.00694917422, -3.90888599e-05, 0.176206753, 0.351501822, 0.0635323599, 3.92e-05],
+            [91, 1.00006878, -0.000322809501, 0.00627334276, -6.75388583e-05, 0.157360464, 0.352837145, 0.0642964542, 4.28e-05],
+            [92, 1.00007463, -0.00031041287, 0.00529000489, -6.47179186e-05, 0.139757097, 0.354536504, 0.0655529201, 4.82e-05],
+            [93, 1.00007761, -0.000358019635, 0.00472675543, -9.09763694e-05, 0.119980618, 0.35537672, 0.0659250319, 5.54e-05],
+            [94, 1.00008178, -0.00033902115, 0.00385106867, -7.55292276e-05, 0.101597577, 0.356451571, 0.0670226812, 6.32e-05],
+            [95, 1.00008607, -0.000284805923, 0.00292322598, -3.67178181e-05, 0.083560437, 0.357711256, 0.0682194382, 6.81e-05],
+            [96, 1.00009084, -0.000298876199, 0.00216674781, -4.53583634e-05, 0.0643021613, 0.358351648, 0.0689692721, 8.41e-05],
+            [97, 1.00009906, -0.000303607987, 0.00136488641, -5.36319967e-05, 0.0452753156, 0.358882457, 0.0697947517, 8.3e-05],
+            [98, 1.00010014, -0.000276699342, 0.000327388581, -3.23357017e-05, 0.0273851901, 0.359426737, 0.0709651634, 8.35e-05],
+            [99, 1.00010002, -0.000258253189, -0.000477120513, -2.44932289e-05, 0.00815790892, 0.359705776, 0.0718068779, 8.63e-05],
+            [100, 1.00009966, -0.000247100892, -0.00135183695, -3.1182004e-05, -0.0104938336, 0.359762162, 0.0725869313, 9.36e-05],
+        ],
+    },
+    "easy_ba": {
+        "frames": 200,
+        "failed": 0,
+        "idepth_rmse": 0.02973144467920065,
+        "precision": 1.0,
+        "recall": 0.8624308430989583,
+        "coverage": 0.8713281750679016,
+        "ate_rmse": 0.009011904762511165,
+        "ate_rmse_sim3": 0.002703305207520242,
+        "gt_path_length": 2.643495964324188,
+        "rpe_trans_rmse": 0.0006210389508658578,
+        "rpe_rot_rmse_deg": 0.011570308104616815,
+        "rpe30_trans_rmse": 0.007292582646618685,
+        "rpe30_rot_rmse_deg": 0.07832329166830793,
+        "track_failed_frames": 0,
+        "relocalizations": 0,
+        "ba_solves": 25,
+        "perturbed": [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15],
+        "parting_frame": 30,
+        "ba_route": {'unsharded': {'solves': 25, 'points': [256]}, 'sharded': {'solves': 0, 'points': []}},
+        "jax_devices": 1,
+        "ba_costs": [2.8223657608032227, 2.3683857917785645, 2.762031078338623],
+        "poses": [
+            [0, 1, 0, 0, 0, 0, 0, 0, 0],
+            [1, 0.99999994, -8.27687472e-06, 0.000755275483, -7.85837801e-06, 0.019152442, 4.75551533e-05, 0.000600933447, 1.04e-07],
+            [2, 0.999999464, -8.12580129e-06, 0.00156834931, -1.7059956e-05, 0.0378730111, 0.000304372632, 0.00138348714, 6.41e-08],
+            [3, 0.999998987, -6.86746216e-06, 0.00230144686, -1.61922908e-05, 0.0571339875, 0.000736193557, 0.00183815463, 9.31e-08],
+            [4, 0.999998987, -4.00727804e-05, 0.00313823391, -5.10179962e-05, 0.0756388158, 0.00109161437, 0.00255503971, 1.64e-07],
+            [5, 1.00000143, -2.04989447e-05, 0.00390937831, -4.45743281e-05, 0.0944528729, 0.00201592711, 0.0033393479, 9.59e-08],
+            [6, 1.00001109, -1.7966644e-05, 0.00467414828, -3.31264782e-05, 0.113268547, 0.00305753225, 0.00380603038, 1.64e-07],
+            [7, 1.00003791, -1.76307731e-05, 0.00545943761, -3.28533388e-05, 0.131668001, 0.00419698888, 0.00428148033, 1.3e-07],
+            [8, 1.0000335, -1.49820744e-05, 0.0061965026, -1.85847584e-05, 0.150231868, 0.00568229798, 0.00449499208, 2.84e-07],
+            [9, 1.00002885, -3.36751577e-06, 0.00691233249, -2.0238469e-05, 0.168784916, 0.00713743456, 0.00520266313, 3.54e-07],
+            [10, 1.00002372, 6.5501692e-05, 0.00762453722, -2.41089947e-06, 0.187124819, 0.00936253741, 0.00581489597, 2.83e-07],
+            [11, 1.00001836, 7.53114e-05, 0.00828711223, 3.69779445e-06, 0.205542237, 0.0113258325, 0.0064281188, 2.38e-07],
+            [12, 1.00001121, 3.55017582e-05, 0.0090747457, -1.02448448e-05, 0.222940043, 0.0130478386, 0.00668707397, 5.97e-07],
+            [13, 1.0000031, -7.74539876e-06, 0.00990559347, -2.4537072e-05, 0.239880815, 0.0149277747, 0.00661520846, 1.25e-06],
+            [14, 0.999994338, -1.64429748e-05, 0.0107539259, -6.04476372e-05, 0.256317943, 0.017202504, 0.00662308838, 1.27e-06],
+            [15, 0.999986708, -8.15681851e-05, 0.0114503317, -4.81706084e-05, 0.273204088, 0.0192751046, 0.00671277288, 1.23e-06],
+            [16, 0.9999789, -0.000109715191, 0.0121309869, -0.000107580236, 0.289986968, 0.0216528233, 0.00700485194, 1.37e-06],
+            [17, 0.999971449, -0.000106375694, 0.0127674472, -0.000121847013, 0.306477219, 0.0245295987, 0.00705492822, 1.77e-06],
+            [18, 0.999964356, -3.57238823e-05, 0.0134007977, -0.000101407073, 0.322682142, 0.0279395059, 0.00760976085, 1.77e-06],
+            [19, 0.999958277, -5.38758904e-05, 0.0140533112, -0.000140517295, 0.338346958, 0.030838212, 0.00777193811, 9.54e-07],
+            [20, 0.999950469, -5.78472209e-05, 0.0145842414, -0.000129012289, 0.354290098, 0.033973448, 0.00811929163, 2.59e-06],
+            [21, 0.999939382, -6.72951501e-05, 0.0153109711, -0.000176122208, 0.368640333, 0.0373859145, 0.0086859623, 4.01e-06],
+            [22, 0.999930203, 3.8967697e-05, 0.015868064, -0.000119167707, 0.383660585, 0.0417202488, 0.00894613378, 5.8e-06],
+            [23, 0.999919474, 0.000101284895, 0.0164395031, -0.000133416514, 0.398169398, 0.0457404889, 0.00927615445, 8.16e-06],
+            [24, 0.99990654, 1.95448265e-05, 0.0170324165, -0.000133547452, 0.411985338, 0.0490590781, 0.00938178971, 1.84e-05],
+            [25, 0.999888778, 6.7901412e-05, 0.0176035017, -0.000115030853, 0.425467312, 0.053307496, 0.00976206269, 2.31e-05],
+            [26, 0.999876738, 9.79441975e-05, 0.0182701461, -9.18714431e-05, 0.437933147, 0.0575537011, 0.0101495488, 3.91e-05],
+            [27, 0.999867976, -1.91246017e-05, 0.0187589973, -0.000125029735, 0.451010227, 0.0610406138, 0.0102846893, 9.94e-05],
+            [28, 0.999857306, 8.78543233e-06, 0.0193393994, -0.000115448493, 0.462850958, 0.0656030774, 0.010940494, 9.92e-05],
+            [29, 0.99984926, -1.13452743e-05, 0.0197922066, -0.000104532039, 0.475103557, 0.0699971467, 0.0110064335, 7.52e-05],
+        ],
+    },
+    "low_texture": {
+        "frames": 200,
+        "failed": 0,
+        "idepth_rmse": 0.03290954616852105,
+        "precision": 1.0,
+        "recall": 0.8680556803385415,
+        "coverage": 0.8478613495826721,
+        "ate_rmse": 0.006408520692473594,
+        "ate_rmse_sim3": 0.005997113906543451,
+        "gt_path_length": 2.643495964324188,
+        "rpe_trans_rmse": 0.0030642440015333683,
+        "rpe_rot_rmse_deg": 0.060379982719267436,
+        "rpe30_trans_rmse": 0.007236958809567767,
+        "rpe30_rot_rmse_deg": 0.12799411741045252,
+        "track_failed_frames": 0,
+        "relocalizations": 0,
+        "perturbed": [1, 2, 3],
+        "parting_frame": 17,
+        "ba_route": {'unsharded': {'solves': 0, 'points': []}, 'sharded': {'solves': 0, 'points': []}},
+        "jax_devices": 1,
+        "poses": [
+            [0, 1, 0, 0, 0, 0, 0, 0, 0],
+            [1, 1.00000024, 7.53410786e-05, 0.000589677249, 4.86439094e-05, 0.0200580414, 0.000530653459, -0.000665596162, 2.63e-06],
+            [2, 0.999999523, 2.60035358e-05, 0.00163023791, -6.71140442e-05, 0.0374239683, 0.000395241135, 0.00061152922, 2.02e-05],
+            [3, 0.999999523, -4.28133571e-05, 0.00230047316, -3.28460628e-05, 0.0570937842, 0.00043361081, 0.00131260231, 2.65e-06],
+            [4, 0.999999166, -0.000113528906, 0.00330520212, -8.43343951e-05, 0.0746108294, 0.000606694026, 0.00165894919, 9.62e-07],
+            [5, 1.00000346, -4.33708301e-05, 0.00395571394, -8.75150145e-05, 0.0941439718, 0.00180828385, 0.00278778886, 2.73e-06],
+            [6, 1.00001633, -1.65594138e-05, 0.00473732082, -6.52545496e-05, 0.112941615, 0.00302453036, 0.00332586677, 5.96e-07],
+            [7, 1.00005138, -4.84098337e-06, 0.00552065251, -6.71998714e-05, 0.131262705, 0.00422317395, 0.00391173735, 1.43e-06],
+            [8, 1.00004768, -0.000128928586, 0.00609336421, -2.44860676e-05, 0.150417477, 0.00493880361, 0.0031295158, 1.43e-06],
+            [9, 1.00004256, -4.50150183e-05, 0.00690306257, -1.46291277e-05, 0.168672994, 0.00694618002, 0.00520341843, 1.43e-06],
+            [10, 1.00003648, -6.65616972e-05, 0.00769716175, -2.27171404e-06, 0.186450779, 0.00847754162, 0.00554617029, 1.43e-06],
+            [11, 1.00002956, -8.37055122e-05, 0.00849787518, -1.58927141e-05, 0.203830093, 0.0102972416, 0.00536090136, 5.9e-06],
+            [12, 1.00002205, -0.000160761658, 0.00919360761, 6.26630936e-06, 0.221944571, 0.01174495, 0.00604236033, 7.93e-06],
+            [13, 1.0000118, -6.75196643e-05, 0.00991644058, -1.26709419e-05, 0.239472181, 0.0146663133, 0.0060876254, 6.68e-06],
+            [14, 0.999999642, -0.000216401386, 0.011093894, -7.5225631e-05, 0.254209369, 0.01608021, 0.00534155779, 4.8e-05],
+            [15, 0.999992311, -0.000243428163, 0.0117606428, -4.23986385e-05, 0.271462291, 0.0183874499, 0.00587152829, 1.35e-05],
+            [16, 0.999984801, -0.000382547907, 0.0124449944, -8.51971781e-05, 0.288419724, 0.02007965, 0.00600683782, 2.4e-05],
+        ],
+    },
+    "rotation": {
+        "frames": 200,
+        "failed": 0,
+        "idepth_rmse": 0.03698219157755375,
+        "precision": 1.0,
+        "recall": 0.7803816080729166,
+        "coverage": 0.7475293278694153,
+        "ate_rmse": 0.009566661755867992,
+        "ate_rmse_sim3": 0.002628476717384667,
+        "gt_path_length": 0.267369855260486,
+        "rpe_trans_rmse": 0.0005255694137033502,
+        "rpe_rot_rmse_deg": 0.009508992960587161,
+        "rpe30_trans_rmse": 0.00879663285201925,
+        "rpe30_rot_rmse_deg": 0.1643565216707609,
+        "track_failed_frames": 0,
+        "relocalizations": 0,
+        "perturbed": [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15],
+        "parting_frame": 55,
+        "ba_route": {'unsharded': {'solves': 0, 'points': []}, 'sharded': {'solves': 0, 'points': []}},
+        "jax_devices": 1,
+        "poses": [
+            [0, 1, 0, 0, 0, 0, 0, 0, 0],
+            [1, 0.999987245, 0.0018953667, 0.00467444398, -3.09017087e-05, 0.00219098455, -4.61087875e-05, -0.000147295141, 1.19e-07],
+            [2, 0.999948084, 0.00368789397, 0.00949861296, -6.32390365e-05, 0.00356484344, -0.000590435171, -0.000311801123, 1.84e-07],
+            [3, 0.999883533, 0.00561989052, 0.0141891278, -4.0590985e-05, 0.0056488011, -0.000178767557, -0.00032726361, 1.88e-07],
+            [4, 0.999793649, 0.00747302268, 0.01889023, -4.26246697e-05, 0.00758709479, 8.59357988e-06, -0.000330156065, 2.14e-07],
+            [5, 0.999679267, 0.00929496717, 0.0235723071, -6.89102162e-05, 0.00950131379, 2.23551342e-05, -0.000486146571, 1.3e-07],
+            [6, 0.999539495, 0.011130604, 0.0282570366, -3.78381374e-05, 0.0111911623, 0.000488853606, -0.000583190529, 2.98e-07],
+            [7, 0.999379575, 0.0127867889, 0.0328814238, -3.44010878e-05, 0.0130923456, 0.000176029323, -0.000778878748, 7.15e-07],
+            [8, 0.99919498, 0.0143772643, 0.0375115722, -6.7219742e-05, 0.014728386, -0.000294563535, -0.00108387624, 7.15e-07],
+            [9, 0.998986661, 0.0160146896, 0.0421216339, -5.26641343e-05, 0.016241923, -3.53275973e-05, -0.00114244339, 7.15e-07],
+            [10, 0.998757541, 0.017587956, 0.0466925986, -6.79668592e-05, 0.0177780986, 0.000173874418, -0.00131367147, 7.15e-07],
+            [11, 0.998514473, 0.0189963561, 0.0511530377, -8.70076619e-05, 0.0196201019, -0.000115046845, -0.00157396449, 8.34e-07],
+            [12, 0.998249054, 0.0204265695, 0.0556467287, -8.89906514e-05, 0.0209249854, 0.000206108263, -0.0019777182, 8.94e-07],
+            [13, 0.997973442, 0.0217170287, 0.0600628927, -8.87640708e-05, 0.0223829933, 0.000146623745, -0.0019917693, 1.19e-06],
+            [14, 0.99767375, 0.0230231211, 0.064397186, -7.91653074e-05, 0.0238590408, 0.000778700109, -0.00195396878, 1.19e-06],
+            [15, 0.997362971, 0.024106469, 0.0686730072, -0.000112800626, 0.0252887793, 0.000636068464, -0.0024636318, 1.19e-06],
+            [16, 0.997042596, 0.0250103958, 0.0728725791, -0.000117553376, 0.0267011318, -1.19372853e-05, -0.0027750507, 1.13e-06],
+            [17, 0.996711552, 0.0259789731, 0.0769477189, -0.000122496043, 0.0284748841, 0.000346579938, -0.00295419712, 1.07e-06],
+            [18, 0.996368766, 0.0268108808, 0.0809942782, -0.000135220675, 0.0299289636, 0.000547495612, -0.00318998937, 9.54e-07],
+            [19, 0.99601084, 0.0275805593, 0.0850301981, -0.000143193203, 0.030819755, 0.00114503782, -0.00336597161, 1.97e-06],
+            [20, 0.995656013, 0.0281550083, 0.0889106467, -0.000159552583, 0.0322240368, 0.00109589519, -0.00374523643, 2.02e-06],
+            [21, 0.995285809, 0.0286356881, 0.0928184167, -0.00016950295, 0.0326659605, 0.00126113917, -0.00396992499, 2.81e-06],
+            [22, 0.994941652, 0.0289271902, 0.09635593, -0.000166624799, 0.0349646397, 0.00104881369, -0.00450118771, 7.02e-06],
+            [23, 0.994572997, 0.0292559341, 0.100007884, -0.000187340862, 0.0358884484, 0.00178896182, -0.00482026814, 7.79e-06],
+            [24, 0.994216263, 0.0293359458, 0.103501767, -0.000179849652, 0.0370254181, 0.00162335369, -0.00520185288, 9.77e-06],
+            [25, 0.993861139, 0.0293406639, 0.106929131, -0.000194451641, 0.0379961096, 0.00181000074, -0.00544930901, 1.48e-05],
+            [26, 0.993508935, 0.0291477665, 0.110207826, -0.000191460669, 0.0391112641, 0.00152656739, -0.00604501832, 1.47e-05],
+            [27, 0.99315244, 0.0288736634, 0.113444865, -0.000221604205, 0.0398162082, 0.00149457762, -0.0063460907, 1.47e-05],
+            [28, 0.992815256, 0.0286113471, 0.116430148, -0.000221935639, 0.0413843766, 0.00231697364, -0.00682735257, 1.44e-05],
+            [29, 0.992474616, 0.028099142, 0.119430922, -0.00023994052, 0.0420126207, 0.00219564326, -0.00689008879, 1.39e-05],
+            [30, 0.992152154, 0.0275352746, 0.122236378, -0.000240160414, 0.0430538021, 0.00261912774, -0.00739588123, 1.48e-05],
+            [31, 0.991833389, 0.0269091167, 0.124991484, -0.000263503287, 0.0437082425, 0.0033422797, -0.00735144643, 1.95e-05],
+            [32, 0.991520584, 0.0260756463, 0.127622634, -0.000266656367, 0.044194635, 0.00341420225, -0.00782878324, 1.94e-05],
+            [33, 0.991221547, 0.0251433123, 0.130107597, -0.000278818596, 0.0448405109, 0.00359289744, -0.00784314517, 1.93e-05],
+            [34, 0.990944564, 0.0241662972, 0.13238278, -0.000270402175, 0.0458745174, 0.00419218605, -0.00826422684, 1.87e-05],
+            [35, 0.990675688, 0.0230840184, 0.134569213, -0.000295887323, 0.0467413664, 0.00471331878, -0.00846273173, 1.79e-05],
+            [36, 0.990407169, 0.0218202062, 0.136736602, -0.000284237205, 0.0465517379, 0.00475683855, -0.00881962571, 1.59e-05],
+            [37, 0.990185678, 0.0205252711, 0.138527155, -0.000306189177, 0.0480818152, 0.0050533805, -0.00933942199, 1.55e-05],
+            [38, 0.989971399, 0.0192100052, 0.140238032, -0.000318105915, 0.0490652956, 0.00587427197, -0.00984256528, 1.54e-05],
+            [39, 0.989760041, 0.0177203715, 0.141914845, -0.000335187797, 0.0493930355, 0.00613841787, -0.0101229204, 1.68e-05],
+            [40, 0.989561439, 0.016229324, 0.14347209, -0.000297771272, 0.0495365188, 0.00681910058, -0.0100339828, 2.35e-05],
+            [41, 0.989396811, 0.0146847228, 0.144774809, -0.000320891268, 0.0503251068, 0.00764923636, -0.0104393009, 1.6e-05],
+            [42, 0.989241004, 0.0129655367, 0.146012127, -0.000332964672, 0.0506669879, 0.00769940671, -0.0105650863, 1.69e-05],
+            [43, 0.989112616, 0.011247375, 0.147053629, -0.000329414266, 0.0512534082, 0.0081385728, -0.0107752522, 1.88e-05],
+            [44, 0.988990664, 0.00951989926, 0.147993132, -0.000359556259, 0.0516156219, 0.00884725805, -0.0107497377, 3.45e-05],
+            [45, 0.988892794, 0.00768542662, 0.148751676, -0.000360242615, 0.0519368015, 0.00916486513, -0.0110416897, 2.17e-05],
+            [46, 0.988809049, 0.00582014723, 0.149391577, -0.000348120171, 0.0520486608, 0.00948550832, -0.011228201, 5.5e-05],
+            [47, 0.988744676, 0.00395841943, 0.149880841, -0.000336624624, 0.0521640368, 0.00998092815, -0.0114082471, 6.23e-05],
+            [48, 0.988702953, 0.00206687301, 0.150197819, -0.000327646238, 0.0524359308, 0.0103607699, -0.0114103705, 2.73e-05],
+            [49, 0.988675117, 0.000158016803, 0.150406852, -0.000343866384, 0.0523541383, 0.0108372327, -0.0116529465, 5.2e-05],
+            [50, 0.988671541, -0.00175065536, 0.150420383, -0.000361472339, 0.0525231622, 0.0113633303, -0.0119562894, 5.12e-05],
+            [51, 0.988681555, -0.00370960333, 0.150320113, -0.000336501835, 0.0523505807, 0.0113527654, -0.0119032832, 4.9e-05],
+            [52, 0.988711894, -0.00558530446, 0.150061503, -0.000342004147, 0.0522223786, 0.0119870063, -0.0119563332, 4.9e-05],
+            [53, 0.988761485, -0.00746520655, 0.149654433, -0.000375083328, 0.0521422885, 0.0124559458, -0.0119779548, 4.83e-05],
+            [54, 0.98883301, -0.00930221286, 0.149081692, -0.00035946077, 0.0520123355, 0.0130990725, -0.0119795324, 4.91e-05],
+        ],
+    },
+    "rotation_ba": {
+        "frames": 200,
+        "failed": 0,
+        "idepth_rmse": 0.0434986669011414,
+        "precision": 1.0,
+        "recall": 0.7848537272135416,
+        "coverage": 0.7197005152702332,
+        "ate_rmse": 0.009768523641582125,
+        "ate_rmse_sim3": 0.0035191233129037744,
+        "gt_path_length": 0.267369855260486,
+        "rpe_trans_rmse": 0.0005439739691928703,
+        "rpe_rot_rmse_deg": 0.010086369637522359,
+        "rpe30_trans_rmse": 0.009438929441194798,
+        "rpe30_rot_rmse_deg": 0.19676545203993606,
+        "track_failed_frames": 0,
+        "relocalizations": 0,
+        "ba_solves": 25,
+        "perturbed": [1, 2, 3, 4, 5, 6, 7],
+        "parting_frame": 66,
+        "ba_route": {'unsharded': {'solves': 25, 'points': [256]}, 'sharded': {'solves': 0, 'points': []}},
+        "jax_devices": 1,
+        "ba_costs": [1.62749183177948, 1.6092332601547241, 2.229059934616089],
+        "poses": [
+            [0, 1, 0, 0, 0, 0, 0, 0, 0],
+            [1, 0.999987245, 0.0018953667, 0.00467444398, -3.09017087e-05, 0.00219098455, -4.61087875e-05, -0.000147295141, 1.19e-07],
+            [2, 0.999948084, 0.00368789397, 0.00949861296, -6.32390365e-05, 0.00356484344, -0.000590435171, -0.000311801123, 1.71e-07],
+            [3, 0.999883533, 0.00561989052, 0.0141891278, -4.0590985e-05, 0.0056488011, -0.000178767557, -0.00032726361, 1.88e-07],
+            [4, 0.999793649, 0.00747302268, 0.01889023, -4.26246697e-05, 0.00758709479, 8.59357988e-06, -0.000330156065, 1.14e-07],
+            [5, 0.999679267, 0.00929496717, 0.0235723071, -6.89102162e-05, 0.00950131379, 2.23551342e-05, -0.000486146571, 1.25e-07],
+            [6, 0.999539495, 0.011130604, 0.0282570366, -3.78381374e-05, 0.0111911623, 0.000488853606, -0.000583190529, 2.98e-07],
+            [7, 0.999379575, 0.0127867889, 0.0328814238, -3.44010878e-05, 0.0130923456, 0.000176029323, -0.000778878748, 7.15e-07],
+            [8, 0.99919498, 0.0143772643, 0.0375115722, -6.7219742e-05, 0.014728386, -0.000294563535, -0.00108387624, 7.15e-07],
+            [9, 0.998986661, 0.0160146896, 0.0421216339, -5.26641343e-05, 0.016241923, -3.53275973e-05, -0.00114244339, 7.15e-07],
+            [10, 0.998757541, 0.017587956, 0.0466925986, -6.79668592e-05, 0.0177780986, 0.000173874418, -0.00131367147, 7.15e-07],
+            [11, 0.998514473, 0.0189963561, 0.0511530377, -8.70076619e-05, 0.0196201019, -0.000115046845, -0.00157396449, 8.34e-07],
+            [12, 0.998249054, 0.0204265695, 0.0556467287, -8.89906514e-05, 0.0209249854, 0.000206108263, -0.0019777182, 8.94e-07],
+            [13, 0.997973442, 0.0217170287, 0.0600628927, -8.87640708e-05, 0.0223829933, 0.000146623745, -0.0019917693, 1.19e-06],
+            [14, 0.997674942, 0.0230030566, 0.0643874928, -8.23583396e-05, 0.0238812901, 0.000637140591, -0.00200135075, 1.19e-06],
+            [15, 0.997365057, 0.0241033733, 0.0686456338, -0.000115607589, 0.0253803339, 0.000609327573, -0.00249277265, 1.19e-06],
+            [16, 0.997045338, 0.0250150766, 0.0728379041, -0.000121781384, 0.02680628, 2.31773301e-05, -0.00278166006, 1.13e-06],
+            [17, 0.996715784, 0.0259730183, 0.0769020692, -0.000128993677, 0.0285947658, 0.00030778072, -0.00300208945, 1.19e-06],
+            [18, 0.996373236, 0.0268214364, 0.08094915, -0.000147536542, 0.029994376, 0.000611473806, -0.00323798554, 1.19e-06],
+            [19, 0.996020913, 0.0275799055, 0.0849483311, -0.000153813307, 0.0311002769, 0.00111867348, -0.00343853096, 1.19e-06],
+            [20, 0.995666921, 0.0281546842, 0.0888230428, -0.000169398685, 0.0324804708, 0.00107423472, -0.00377629092, 1.61e-06],
+            [21, 0.995295823, 0.028640369, 0.0927425027, -0.000182782213, 0.0328182392, 0.00125261745, -0.00392480288, 1.37e-06],
+            [22, 0.994955301, 0.0289511699, 0.0962396339, -0.000172969827, 0.0352874026, 0.00117056584, -0.00441011414, 1.57e-06],
+            [23, 0.9945876, 0.0292756222, 0.0998883769, -0.000193561093, 0.0361873806, 0.00185798574, -0.00472718105, 2.52e-06],
+            [24, 0.994231224, 0.029383067, 0.103377797, -0.000181237483, 0.0373130292, 0.00187015766, -0.00500662485, 3.46e-06],
+            [25, 0.993879497, 0.0293744951, 0.106789105, -0.000201628296, 0.038321875, 0.00195492012, -0.00527702272, 7.69e-06],
+            [26, 0.993526578, 0.0292397309, 0.110061258, -0.000189153943, 0.0394353829, 0.00203098194, -0.00572332507, 7.69e-06],
+            [27, 0.993172109, 0.0289961472, 0.11327973, -0.000215550084, 0.0402330197, 0.00220145704, -0.00599501515, 7.69e-06],
+            [28, 0.992837369, 0.0287082084, 0.116252057, -0.000203525153, 0.0418102928, 0.00282430649, -0.00641991151, 9.41e-06],
+            [29, 0.992494285, 0.0282150749, 0.119272798, -0.000222418355, 0.0422815345, 0.00281033199, -0.00641204789, 7.39e-06],
+            [30, 0.992173433, 0.0276809037, 0.122056723, -0.00021422666, 0.0434209183, 0.00342315645, -0.00683706533, 9.55e-06],
+            [31, 0.991856694, 0.0270504169, 0.124793544, -0.000230815582, 0.0441742465, 0.00408974057, -0.00678682653, 1.44e-05],
+            [32, 0.991545677, 0.0262413062, 0.127411351, -0.000230048434, 0.0447328426, 0.00431387546, -0.00720995292, 1.45e-05],
+            [33, 0.991248548, 0.0253480487, 0.129881635, -0.000237681335, 0.0454675853, 0.00473938091, -0.00714542391, 1.46e-05],
+            [34, 0.990969718, 0.0243325047, 0.13218534, -0.000238808789, 0.0462918952, 0.00507535646, -0.00754935294, 1.5e-05],
+            [35, 0.990707934, 0.0232289694, 0.134333357, -0.000254557468, 0.0473588929, 0.00541892322, -0.0077475016, 1.58e-05],
+            [36, 0.990444422, 0.0220296457, 0.136475816, -0.000230304388, 0.0473584905, 0.0058796159, -0.0079485774, 1.79e-05],
+            [37, 0.990222514, 0.0207134038, 0.138310924, -0.000266377145, 0.0485462584, 0.00601950381, -0.00844960287, 2.26e-05],
+            [38, 0.990009069, 0.0194190554, 0.140018031, -0.000277475978, 0.0495381728, 0.00695134513, -0.00889018364, 2.26e-05],
+            [39, 0.989800632, 0.0179565866, 0.141679466, -0.000291439035, 0.0499595888, 0.0073818583, -0.00910305884, 2.29e-05],
+            [40, 0.98960048, 0.01642612, 0.143262684, -0.000265379524, 0.0499270223, 0.0077816532, -0.0090279812, 2.29e-05],
+            [41, 0.989439309, 0.014935609, 0.144550547, -0.000285691058, 0.05079953, 0.0089557115, -0.00935915578, 2.32e-05],
+            [42, 0.989290953, 0.0132018616, 0.145771191, -0.000297803606, 0.0512376204, 0.00890910253, -0.00954484288, 2.38e-05],
+            [43, 0.989172578, 0.0114905192, 0.146813914, -0.000292430195, 0.0518223532, 0.00937862135, -0.00969216414, 2.54e-05],
+            [44, 0.989052594, 0.00974793639, 0.147745416, -0.000320740306, 0.0522136427, 0.00996138901, -0.00972695462, 2.54e-05],
+            [45, 0.988954961, 0.00792936515, 0.148505405, -0.000321325002, 0.0525323525, 0.0103726229, -0.00994518306, 2.55e-05],
+            [46, 0.988871098, 0.00606674422, 0.149152055, -0.000315157493, 0.0525960401, 0.0106993103, -0.0101322457, 2.57e-05],
+            [47, 0.988806605, 0.00422130013, 0.149643451, -0.000316245103, 0.0526963994, 0.0112857297, -0.01027539, 2.6e-05],
+            [48, 0.988764882, 0.00233569695, 0.149966002, -0.00030268071, 0.0529286154, 0.0117044114, -0.0102504138, 2.7e-05],
+            [49, 0.988738179, 0.0004381623, 0.150172338, -0.000317335158, 0.0528660342, 0.0122470846, -0.0104544424, 2.94e-05],
+            [50, 0.988734543, -0.00147232681, 0.150189191, -0.000334089942, 0.0530227274, 0.0127525833, -0.0107253445, 2.94e-05],
+            [51, 0.988744676, -0.00344299991, 0.150090337, -0.000308545947, 0.0528501458, 0.0126684969, -0.0106862672, 2.93e-05],
+            [52, 0.988775611, -0.00531882932, 0.149832502, -0.000314992882, 0.0527168661, 0.0132904276, -0.0107148979, 2.93e-05],
+            [53, 0.988826036, -0.00717779202, 0.149422526, -0.000348602305, 0.052640941, 0.0138942404, -0.0107321516, 2.88e-05],
+            [54, 0.98889792, -0.00901081134, 0.148849025, -0.000332352472, 0.052515652, 0.0145482309, -0.0107492311, 2.85e-05],
+            [55, 0.988984764, -0.0108337784, 0.148155347, -0.000340280327, 0.0521855503, 0.0150293633, -0.0106456429, 2.67e-05],
+            [56, 0.989093423, -0.0126650175, 0.147281051, -0.000374754571, 0.0520072468, 0.0151640382, -0.0109234136, 2.68e-05],
+            [57, 0.989212513, -0.0143934209, 0.146319121, -0.000372251379, 0.051475998, 0.0156449284, -0.0106127262, 2.66e-05],
+            [58, 0.989355624, -0.0160610825, 0.145171434, -0.000355747965, 0.0511048175, 0.0162439048, -0.0106013706, 2.68e-05],
+            [59, 0.989518702, -0.0177291613, 0.143855602, -0.00033650297, 0.0508674048, 0.016442854, -0.0107137654, 2.69e-05],
+            [60, 0.98969233, -0.0192823336, 0.142444417, -0.000320589344, 0.0502168052, 0.0169241987, -0.0105304187, 2.67e-05],
+            [61, 0.989887953, -0.0207678452, 0.140841231, -0.000344891567, 0.0498247743, 0.0174214728, -0.0105183618, 2.66e-05],
+            [62, 0.990101099, -0.0221156348, 0.139128298, -0.000327430345, 0.0492941588, 0.0182298291, -0.0102405138, 3.28e-05],
+            [63, 0.990326047, -0.0234750342, 0.13729389, -0.000313790049, 0.0485155098, 0.0184664261, -0.0102585657, 3.91e-05],
+            [64, 0.990574539, -0.0246502105, 0.135284394, -0.000322174776, 0.0480394252, 0.0194038078, -0.00979363918, 7.09e-05],
+            [65, 0.990831077, -0.0258709192, 0.133170441, -0.000322928769, 0.047187604, 0.0193724949, -0.0100783994, 7.38e-05],
+        ],
+    },
+    "mav": {
+        "frames": 200,
+        "failed": 0,
+        "idepth_rmse": 0.03875426704064012,
+        "precision": 1.0,
+        "recall": 0.7514840494791667,
+        "coverage": 0.6544596552848816,
+        "ate_rmse": 0.011072163097593837,
+        "ate_rmse_sim3": 0.00536709608855061,
+        "gt_path_length": 3.3453696373496147,
+        "rpe_trans_rmse": 0.0007593367279138683,
+        "rpe_rot_rmse_deg": 0.015161580210662868,
+        "rpe30_trans_rmse": 0.008456626741880968,
+        "rpe30_rot_rmse_deg": 0.09465497633135596,
+        "track_failed_frames": 0,
+        "relocalizations": 0,
+        "perturbed": [1, 2, 3],
+        "parting_frame": 48,
+        "ba_route": {'unsharded': {'solves': 0, 'points': []}, 'sharded': {'solves': 0, 'points': []}},
+        "jax_devices": 1,
+        "poses": [
+            [0, 1, 0, 0, 0, 0, 0, 0, 0],
+            [1, 0.999980807, 0.00135142112, 0.00390556199, 0.0045826463, 0.0150137674, 0.00692531094, 0.000651667011, 1.24e-07],
+            [2, 0.999925137, 0.00245170039, 0.00773667684, 0.00915809907, 0.03002638, 0.0133507084, 0.00158997159, 7.43e-08],
+            [3, 0.999834657, 0.00344156963, 0.0114620551, 0.0136888763, 0.045278579, 0.0202727281, 0.00303105824, 1.04e-07],
+            [4, 0.999711514, 0.00420815172, 0.0151597029, 0.0181496777, 0.0601864867, 0.0268758647, 0.00476824818, 1.29e-07],
+            [5, 0.999559283, 0.0046470766, 0.0187632069, 0.0225292221, 0.0751723722, 0.0324660018, 0.0068239728, 1.15e-07],
+            [6, 0.999379456, 0.00493840408, 0.0223154221, 0.0268073287, 0.0899659693, 0.0382638574, 0.0090564806, 5.96e-08],
+            [7, 0.999175966, 0.00493965158, 0.0257935822, 0.0309672263, 0.104570337, 0.0432599634, 0.0117188543, 1.23e-07],
+            [8, 0.998953164, 0.00470783375, 0.0291452184, 0.034973152, 0.119345501, 0.0478841774, 0.0146598332, 1.6e-07],
+            [9, 0.998711884, 0.00427261926, 0.0324350335, 0.0388247147, 0.134012058, 0.0521731041, 0.0178536642, 1.53e-07],
+            [10, 0.998454273, 0.00367519818, 0.0356776044, 0.0425264202, 0.148164585, 0.0564530902, 0.0217546336, 2.68e-07],
+            [11, 0.998186827, 0.00272335927, 0.0387916379, 0.0460728891, 0.162520736, 0.0595104247, 0.0255178027, 2.76e-07],
+            [12, 0.997916818, 0.00156237523, 0.0418364406, 0.049354285, 0.176609442, 0.0621453151, 0.0297782421, 1.79e-07],
+            [13, 0.99764961, 0.000260511413, 0.0447576605, 0.0524845086, 0.190689325, 0.0647431538, 0.0344062969, 2.87e-07],
+            [14, 0.9973647, -0.00131903321, 0.0475758165, 0.0553303324, 0.204708502, 0.0663248971, 0.0392466597, 2.2e-07],
+            [15, 0.997075021, -0.00301376032, 0.0503204763, 0.0579957552, 0.218414977, 0.0679966584, 0.0446262993, 4.32e-07],
+            [16, 0.996792853, -0.00498262513, 0.0528919622, 0.0603880994, 0.232312292, 0.0687113404, 0.0502886586, 2.12e-07],
+            [17, 0.996512413, -0.00715937046, 0.0554018393, 0.0625320822, 0.245846197, 0.0687951744, 0.056354139, 2.35e-07],
+            [18, 0.99624145, -0.00947771128, 0.0577987246, 0.064412795, 0.259106666, 0.0685462877, 0.0626924038, 5.07e-07],
+            [19, 0.995985329, -0.0120113418, 0.0600678436, 0.0660017952, 0.272315919, 0.067508623, 0.0692423731, 3.13e-07],
+            [20, 0.995729148, -0.0146466112, 0.0622177683, 0.0673301965, 0.285346419, 0.0664184168, 0.0763450563, 3.13e-07],
+            [21, 0.99548614, -0.0175565742, 0.064201057, 0.0683577135, 0.298558474, 0.0638852939, 0.0836478397, 3.28e-07],
+            [22, 0.995251834, -0.0205024779, 0.0661257431, 0.0691100284, 0.311095804, 0.0615207106, 0.0916499346, 2.98e-07],
+            [23, 0.995031834, -0.0235997308, 0.0679270625, 0.0695391148, 0.323388129, 0.0585487783, 0.0998574942, 3.28e-07],
+            [24, 0.994826376, -0.026888011, 0.0695340931, 0.0696898997, 0.335847676, 0.0545286946, 0.108147599, 3.58e-07],
+            [25, 0.994634807, -0.0301871691, 0.07104633, 0.0695389882, 0.347827077, 0.0506784767, 0.117158957, 6.56e-07],
+            [26, 0.994454443, -0.033586897, 0.07246048, 0.0691005141, 0.359356165, 0.0464013778, 0.126711607, 6.56e-07],
+            [27, 0.99429065, -0.037079107, 0.0737010837, 0.0683531016, 0.371024191, 0.0413227901, 0.136604637, 6.56e-07],
+            [28, 0.994138241, -0.0406644903, 0.0748111606, 0.0673212036, 0.382201254, 0.0358416215, 0.146868706, 6.56e-07],
+            [29, 0.993993998, -0.044268392, 0.0758322924, 0.0660246238, 0.392863482, 0.0300672371, 0.157540992, 6.56e-07],
+            [30, 0.99386555, -0.0479277372, 0.0766867399, 0.0644047558, 0.40342024, 0.0237128437, 0.168715388, 6.56e-07],
+            [31, 0.99374485, -0.0515731052, 0.07744582, 0.0625317842, 0.413367987, 0.0173031799, 0.180367529, 6.56e-07],
+            [32, 0.993633091, -0.0552529953, 0.0780095905, 0.0604304075, 0.423288196, 0.0102835651, 0.192172199, 3.67e-06],
+            [33, 0.993529916, -0.0589960478, 0.0784249976, 0.0580078736, 0.432696879, 0.00265794992, 0.204140902, 8.16e-06],
+            [34, 0.993430257, -0.0627081543, 0.078757681, 0.0553147271, 0.441453189, -0.00529115275, 0.216653958, 4.54e-05],
+            [35, 0.993337214, -0.066318661, 0.0789813176, 0.0524065159, 0.449557751, -0.0128700882, 0.230006441, 1.55e-05],
+            [36, 0.993256152, -0.0698994771, 0.07895004, 0.0493133999, 0.457750052, -0.02109484, 0.242749408, 1.35e-05],
+            [37, 0.993181944, -0.0732912943, 0.0789182037, 0.045991987, 0.464910656, -0.0284911059, 0.257103741, 2.06e-05],
+            [38, 0.993097246, -0.0767093375, 0.0787083507, 0.0424690805, 0.471705943, -0.0366813205, 0.271316379, 3.1e-05],
+            [39, 0.993016899, -0.0800327957, 0.0783483014, 0.038714692, 0.477919191, -0.0450429656, 0.285638392, 7.89e-05],
+            [40, 0.992932916, -0.0832522511, 0.0778984576, 0.0347820967, 0.483469188, -0.0533721, 0.300673425, 5.65e-05],
+            [41, 0.992853522, -0.0863752216, 0.0772064924, 0.0307279006, 0.488780677, -0.0619207062, 0.315119803, 8.46e-05],
+            [42, 0.992775083, -0.0893418267, 0.0763934851, 0.0264882557, 0.493564576, -0.0702615678, 0.330280006, 8.54e-05],
+            [43, 0.992684603, -0.092163384, 0.0755530223, 0.0221871585, 0.497298419, -0.0784424692, 0.346136391, 4.77e-05],
+            [44, 0.992597461, -0.094872728, 0.0745082647, 0.0177713372, 0.500737429, -0.0869040117, 0.361734092, 7.53e-05],
+            [45, 0.992524326, -0.0972181633, 0.0733997449, 0.013235826, 0.503016114, -0.0938884765, 0.377580225, 7.4e-05],
+            [46, 0.992420018, -0.0997976586, 0.0720433071, 0.00858289097, 0.50540483, -0.103223801, 0.39317736, 7.77e-05],
+            [47, 0.99231708, -0.102075875, 0.0707042515, 0.00388719514, 0.506432652, -0.111515477, 0.40958488, 8.77e-05],
+        ],
+    },
+    "occlusion": {
+        "frames": 190,
+        "failed": 0,
+        "idepth_rmse": 0.02957956966404852,
+        "precision": 1.0,
+        "recall": 0.8544349814967105,
+        "coverage": 0.8645344972610474,
+        "ate_rmse": 0.004098322511763632,
+        "ate_rmse_sim3": 0.004096321349222194,
+        "gt_path_length": 2.6433636216881906,
+        "rpe_trans_rmse": 0.0006293814731011409,
+        "rpe_rot_rmse_deg": 0.011917821097170963,
+        "rpe30_trans_rmse": 0.005108024025871984,
+        "rpe30_rot_rmse_deg": 0.09940445162353553,
+        "track_failed_frames": 10,
+        "relocalizations": 1,
+        "perturbed": [1, 2, 3],
+        "parting_frame": 108,
+        "ba_route": {'unsharded': {'solves': 0, 'points': []}, 'sharded': {'solves': 0, 'points': []}},
+        "jax_devices": 1,
+        "poses": [
+            [0, 1, 0, 0, 0, 0, 0, 0, 0],
+            [1, 0.99999994, -8.27687472e-06, 0.000755275483, -7.85837801e-06, 0.019152442, 4.75551533e-05, 0.000600933447, 1.04e-07],
+            [2, 0.999999464, -8.12580129e-06, 0.00156834931, -1.7059956e-05, 0.0378730111, 0.000304372632, 0.00138348714, 4.03e-08],
+            [3, 0.999998987, -6.86746216e-06, 0.00230144686, -1.61922908e-05, 0.0571339875, 0.000736193557, 0.00183815463, 7.82e-08],
+            [4, 0.999998987, -4.00727804e-05, 0.00313823391, -5.10179962e-05, 0.0756388158, 0.00109161437, 0.00255503971, 5.96e-08],
+            [5, 1.00000143, -2.04989447e-05, 0.00390937831, -4.45743281e-05, 0.0944528729, 0.00201592711, 0.0033393479, 7.29e-08],
+            [6, 1.00001109, -1.7966644e-05, 0.00467414828, -3.31264782e-05, 0.113268547, 0.00305753225, 0.00380603038, 1.64e-07],
+            [7, 1.00003791, -1.76307731e-05, 0.00545943761, -3.28533388e-05, 0.131668001, 0.00419698888, 0.00428148033, 2.98e-08],
+            [8, 1.0000335, -1.49820744e-05, 0.0061965026, -1.85847584e-05, 0.150231868, 0.00568229798, 0.00449499208, 2.84e-07],
+            [9, 1.00002885, -3.36751577e-06, 0.00691233249, -2.0238469e-05, 0.168784916, 0.00713743456, 0.00520266313, 1.98e-07],
+            [10, 1.00002372, 6.5501692e-05, 0.00762453722, -2.41089947e-06, 0.187124819, 0.00936253741, 0.00581489597, 1.22e-07],
+            [11, 1.00001836, 7.53114e-05, 0.00828711223, 3.69779445e-06, 0.205542237, 0.0113258325, 0.0064281188, 2.23e-07],
+            [12, 1.00001121, 3.55017582e-05, 0.0090747457, -1.02448448e-05, 0.222940043, 0.0130478386, 0.00668707397, 3.17e-07],
+            [13, 1.0000031, -7.74539876e-06, 0.00990559347, -2.4537072e-05, 0.239880815, 0.0149277747, 0.00661520846, 2.76e-07],
+            [14, 0.99999392, -3.37218953e-05, 0.0107932538, -5.90250202e-05, 0.256243765, 0.0171135142, 0.00658704108, 1.51e-07],
+            [15, 0.999985933, -8.48775962e-05, 0.0115087926, -4.18134769e-05, 0.273171842, 0.0192892347, 0.00673738495, 3.46e-07],
+            [16, 0.999978185, -7.59197937e-05, 0.0121926721, -8.75800833e-05, 0.290097058, 0.0219596885, 0.00711824372, 2.75e-07],
+            [17, 0.999969661, -0.000136183138, 0.012896955, -0.000111631518, 0.30632472, 0.0244266316, 0.00707619078, 3.28e-07],
+            [18, 0.999961078, -0.000155400223, 0.0136041036, -8.94899131e-05, 0.32224077, 0.0272704307, 0.00743435696, 2.33e-07],
+            [19, 0.99995482, -8.42023073e-05, 0.0142200384, -0.000123400299, 0.338282347, 0.0307930652, 0.00782761071, 2.24e-07],
+            [20, 0.999947011, -9.79757751e-05, 0.0147496052, -0.000119575576, 0.354384989, 0.033878874, 0.00816829503, 4.27e-07],
+            [21, 0.99993521, -0.000179699258, 0.015512282, -0.000179411814, 0.368622601, 0.0368352756, 0.00846952852, 4.15e-07],
+            [22, 0.999924839, -0.000145209036, 0.0161323026, -0.000147400307, 0.383356482, 0.0407023653, 0.00851373281, 3.56e-07],
+            [23, 0.999914467, -4.68759972e-05, 0.0166772138, -0.000161960998, 0.39823243, 0.0449720733, 0.0087598972, 3.59e-07],
+            [24, 0.999901116, -0.00015757051, 0.0172636863, -0.000168687271, 0.412172318, 0.0480696633, 0.00897955056, 3.41e-07],
+            [25, 0.999882519, -0.000132583431, 0.0178640299, -0.000154327689, 0.425510824, 0.052190505, 0.00914909504, 5.31e-07],
+            [26, 0.999871075, -0.00010125251, 0.018492328, -0.000149845466, 0.43814978, 0.0563875325, 0.00939934235, 7.11e-07],
+            [27, 0.999861956, -0.000197810441, 0.0189852491, -0.000191375104, 0.451119602, 0.059998855, 0.00937347952, 5.24e-07],
+            [28, 0.999851167, -0.000183218173, 0.0195555873, -0.000207782956, 0.462939471, 0.0643910915, 0.00985810906, 5.12e-07],
+            [29, 0.999842644, -0.000224062562, 0.0200021621, -0.000206410681, 0.47514984, 0.0685566589, 0.00977495592, 6.68e-07],
+            [30, 0.999834061, -0.000222671748, 0.0204722155, -0.000203443822, 0.486479163, 0.0731175765, 0.0100599863, 5.91e-07],
+            [31, 0.999826968, -0.000197064452, 0.020917654, -0.000191328436, 0.497366726, 0.0780020282, 0.0101206396, 6.12e-07],
+            [32, 0.999817789, -0.000147851635, 0.0213539563, -0.000155836635, 0.507714212, 0.0830498934, 0.0105044665, 6.1e-07],
+            [33, 0.999808252, -0.000202572512, 0.0217884686, -0.000173103006, 0.517343462, 0.0875065029, 0.0106325056, 6.69e-07],
+            [34, 0.99980098, -0.000209975304, 0.0221064147, -0.000191244719, 0.527142704, 0.0923559889, 0.0107830605, 8.52e-07],
+            [35, 0.999791205, -0.000295523496, 0.0225130059, -0.000208151265, 0.535658717, 0.0968529508, 0.0108812563, 7.08e-07],
+            [36, 0.999782264, -0.00035536103, 0.0228276141, -0.000219947484, 0.54417026, 0.101528928, 0.011246697, 7.93e-07],
+            [37, 0.999770224, -0.000281010638, 0.0231860373, -0.00020725916, 0.551705301, 0.107247047, 0.0116963657, 7.12e-07],
+            [38, 0.999764264, -0.00030051131, 0.0234474465, -0.00021047768, 0.559169531, 0.112343952, 0.011798935, 8.05e-07],
+            [39, 0.999758005, -0.000275858358, 0.0237117056, -0.000200884286, 0.565825284, 0.117763646, 0.012549689, 7.39e-07],
+            [40, 0.999751389, -0.000327524205, 0.0239954758, -0.000249023928, 0.571627736, 0.122811735, 0.012701205, 7.53e-07],
+            [41, 0.999747634, -0.000311497657, 0.0241700355, -0.000217087087, 0.577478886, 0.128391832, 0.0133655546, 8.52e-07],
+            [42, 0.999742031, -0.000301623892, 0.0244374909, -0.0002226941, 0.582030356, 0.133953989, 0.0135223251, 7.9e-07],
+            [43, 0.999739528, -0.000329883216, 0.0246386472, -0.000240798734, 0.586273372, 0.139258951, 0.0138008967, 8.25e-07],
+            [44, 0.999736488, -0.000386677915, 0.024756005, -0.000282459019, 0.590241015, 0.144515336, 0.014075892, 8.79e-07],
+            [45, 0.999731243, -0.000398981851, 0.0249709934, -0.000312034914, 0.592916787, 0.150000483, 0.0147377225, 8.37e-07],
+            [46, 0.999729395, -0.000319015613, 0.0250339992, -0.000283674221, 0.595628142, 0.156211019, 0.0156325959, 8.85e-07],
+            [47, 0.999726534, -0.000377921155, 0.0251347255, -0.000317035709, 0.597620606, 0.161467493, 0.0152536687, 7.58e-07],
+            [48, 0.999724925, -0.00030338479, 0.0251580831, -0.000266453746, 0.599154711, 0.167534038, 0.016722681, 8.87e-07],
+            [49, 0.99972254, -0.000305036752, 0.0251587741, -0.000261836918, 0.60002476, 0.173283428, 0.0175580643, 7.9e-07],
+            [50, 0.999722004, -0.000309409632, 0.0251802262, -0.0002834404, 0.600178421, 0.179137141, 0.0184519365, 8.88e-07],
+            [51, 0.999721467, -0.00037157652, 0.0252063833, -0.000277894258, 0.599380374, 0.184400082, 0.0192316677, 7.92e-07],
+            [52, 0.999724388, -0.000268787117, 0.025093684, -0.000291224802, 0.598635793, 0.190773085, 0.0200240463, 7.15e-07],
+            [53, 0.99972713, -0.000224256757, 0.0250004698, -0.000303813606, 0.597305536, 0.196672484, 0.0206807479, 9.39e-07],
+            [54, 0.999728858, -0.000283114146, 0.0249636658, -0.000272158184, 0.594737172, 0.201986089, 0.0215327814, 7.15e-07],
+            [55, 0.999735177, -0.000282251305, 0.024804553, -0.000241779897, 0.591994226, 0.207626402, 0.0228348654, 1.1e-06],
+            [56, 0.999740005, -0.000288369047, 0.0246104393, -0.000216190485, 0.588796735, 0.213368639, 0.0239180103, 1.23e-06],
+            [57, 0.999741495, -0.000323462591, 0.0245500002, -0.000222125949, 0.584104896, 0.218635038, 0.0245892685, 1.59e-06],
+            [58, 0.999746919, -0.000306333764, 0.0243281014, -0.000223287978, 0.579751432, 0.224236593, 0.025489362, 2.21e-06],
+            [59, 0.999753058, -0.000248682249, 0.0240935478, -0.000233797706, 0.57477212, 0.230135441, 0.02660124, 2.67e-06],
+            [60, 0.999759793, -0.000326696376, 0.0238304939, -0.000223608396, 0.56907618, 0.235116959, 0.027420748, 2.44e-06],
+            [61, 0.999766886, -0.000343660184, 0.0236023683, -0.000222445844, 0.562508404, 0.240351856, 0.0285560545, 3.28e-06],
+            [62, 0.999774754, -0.000319841725, 0.0232644528, -0.00019343711, 0.555794418, 0.245903179, 0.0297389943, 3.8e-06],
+            [63, 0.999781549, -0.000377232936, 0.0229772106, -0.000188068938, 0.548051, 0.250782639, 0.0307535008, 4.47e-06],
+            [64, 0.999790251, -0.000372593116, 0.0226028282, -0.000181533833, 0.540350795, 0.255861789, 0.0318553783, 4.89e-06],
+            [65, 0.999799609, -0.000338947022, 0.0222065505, -0.00019311544, 0.532199144, 0.261190265, 0.0329465233, 6.2e-06],
+            [66, 0.999808252, -0.000378400291, 0.0218541604, -0.000212664207, 0.522789776, 0.266137093, 0.0343882963, 7.69e-06],
+            [67, 0.999819219, -0.000344827888, 0.0214667916, -0.000192439489, 0.513055146, 0.271264642, 0.0356066152, 9.72e-06],
+            [68, 0.999830365, -0.000321600062, 0.0209488459, -0.000177091148, 0.503443539, 0.276332825, 0.0366346389, 1.16e-05],
+            [69, 0.999839544, -0.000287927949, 0.0205146875, -0.000129201813, 0.492786139, 0.281322449, 0.038083896, 2.03e-05],
+            [70, 0.999848247, -0.000268447446, 0.020103408, -0.000153370958, 0.481176108, 0.286091447, 0.0392913297, 1.06e-05],
+            [71, 0.999859154, -0.000271619909, 0.0196075272, -0.000173301902, 0.469730824, 0.290622532, 0.0404706672, 1.27e-05],
+            [72, 0.999871194, -0.000326854934, 0.019105874, -0.000195893779, 0.457646459, 0.294727236, 0.0417306274, 1.12e-05],
+            [73, 0.999888599, -0.00034590991, 0.0185018107, -0.000164986501, 0.445589334, 0.2989856, 0.0430280752, 1.64e-05],
+            [74, 0.999900877, -0.000337945356, 0.0178302247, -0.000125103747, 0.433295369, 0.303321004, 0.0446537547, 1.27e-05],
+            [75, 0.999909937, -0.000407759071, 0.0173236337, -0.000135893191, 0.419490159, 0.30702737, 0.0457957722, 1.53e-05],
+            [76, 0.999920249, -0.000299403298, 0.0167399626, -0.000162989672, 0.405627221, 0.311522484, 0.047189597, 2.02e-05],
+            [77, 0.999931514, -0.000348423782, 0.0161023159, -0.00010754395, 0.391615152, 0.315046847, 0.048332639, 4.6e-05],
+            [78, 0.99994272, -0.000369140878, 0.0155070005, -0.000129827647, 0.376829743, 0.318715364, 0.0496440232, 2.16e-05],
+            [79, 0.999957144, -0.000289745047, 0.0148864407, -0.000126175786, 0.361678213, 0.322667986, 0.0508891381, 1.4e-05],
+            [90, 1.00026166, -0.000243433111, 0.00690505141, -5.64098882e-05, 0.176605359, 0.3516469, 0.0638286993, 3.85e-05],
+            [91, 1.00026667, -0.00026680046, 0.00612093927, -5.25386349e-05, 0.15807794, 0.353265077, 0.0649087727, 3.85e-05],
+            [92, 1.00027251, -0.000216474946, 0.00506310491, -3.19878163e-05, 0.140846953, 0.355161518, 0.0662611276, 3.85e-05],
+            [93, 1.00027502, -0.0003035095, 0.00455017714, -4.67609862e-05, 0.120839253, 0.355766833, 0.0665543675, 3.86e-05],
+            [94, 1.00027835, -0.000276738603, 0.00370061607, -5.44047725e-05, 0.102341503, 0.356885672, 0.067658186, 3.87e-05],
+            [95, 1.00028145, -0.000187972881, 0.00272875908, -1.55132475e-05, 0.084515363, 0.358333647, 0.0690519363, 6.27e-05],
+            [96, 1.000283, -0.000248884899, 0.00207704166, -3.06037909e-05, 0.0646875277, 0.358680993, 0.069500789, 4.99e-05],
+            [97, 1.00028372, -0.000206357756, 0.00115194416, -4.59491384e-05, 0.0463789701, 0.359522164, 0.0706146583, 4.12e-05],
+            [98, 1.00028455, -0.000171670152, 6.03911831e-05, -2.9153487e-05, 0.0287016537, 0.360122174, 0.0717016384, 4.09e-05],
+            [99, 1.00028431, -0.000161734861, -0.00073383149, -3.62907485e-05, 0.00941501558, 0.36034584, 0.0725234747, 4.09e-05],
+            [100, 1.00028384, -0.000143374113, -0.00159917714, -5.57022831e-05, -0.00931150839, 0.360427469, 0.0732370317, 4.01e-05],
+            [101, 1.00028324, -0.000177254275, -0.00230071717, -4.66251367e-05, -0.029078193, 0.36006856, 0.0736765563, 3.84e-05],
+            [102, 1.000283, -0.000156238864, -0.003204701, -3.74216906e-05, -0.0476292819, 0.359859109, 0.0743615776, 3.45e-05],
+            [103, 1.00028551, -0.000150174892, -0.00399119686, -6.57435739e-05, -0.0667823851, 0.359388173, 0.074932687, 5e-05],
+            [104, 1.00028133, -0.000156796188, -0.00492963055, -6.35127944e-05, -0.0851388201, 0.358514637, 0.0755513161, 7.91e-05],
+            [105, 1.00027692, -7.60202674e-05, -0.00575840147, -5.9126698e-05, -0.103903808, 0.358156294, 0.0763428882, 7.91e-05],
+            [106, 1.00027239, -4.93520747e-05, -0.00654315576, -9.48301167e-05, -0.12268246, 0.3572914, 0.0769612417, 6.1e-05],
+            [107, 1.00026762, -0.000156327907, -0.00729304133, -0.000105505052, -0.141593575, 0.355379403, 0.0770916492, 9.06e-05],
+        ],
+    },
+    "pod_dense": {
+        "frames": 200,
+        "failed": 0,
+        "idepth_rmse": 0.049510225802659985,
+        "precision": 1.0,
+        "recall": 0.7600398763020835,
+        "coverage": 0.7876042127609253,
+        "ate_rmse": 0.006572901838236689,
+        "ate_rmse_sim3": 0.006555137305161094,
+        "gt_path_length": 2.643495964324188,
+        "rpe_trans_rmse": 0.0011842171227295414,
+        "rpe_rot_rmse_deg": 0.02344921350590993,
+        "rpe30_trans_rmse": 0.008345768295873494,
+        "rpe30_rot_rmse_deg": 0.2652213010983467,
+        "track_failed_frames": 0,
+        "relocalizations": 0,
+        "ba_solves": 32,
+        "perturbed": [1, 2, 3, 4, 5, 6, 7],
+        "parting_frame": 35,
+        "ba_route": {'unsharded': {'solves': 32, 'points': [16384]}, 'sharded': {'solves': 0, 'points': []}},
+        "jax_devices": 1,
+        "ba_costs": [1.6760051250457764, 1.7501733303070068, 1.8400570154190063],
+        "poses": [
+            [0, 1, 0, 0, 0, 0, 0, 0, 0],
+            [1, 0.99999994, -8.27687472e-06, 0.000755275483, -7.85837801e-06, 0.019152442, 4.75551533e-05, 0.000600933447, 1.04e-07],
+            [2, 0.999999464, -8.12580129e-06, 0.00156834931, -1.7059956e-05, 0.0378730111, 0.000304372632, 0.00138348714, 6.41e-08],
+            [3, 0.999998987, -6.86746216e-06, 0.00230144686, -1.61922908e-05, 0.0571339875, 0.000736193557, 0.00183815463, 7.9e-08],
+            [4, 0.999998987, -4.00727804e-05, 0.00313823391, -5.10179962e-05, 0.0756388158, 0.00109161437, 0.00255503971, 5.96e-08],
+            [5, 1.00000143, -2.04989447e-05, 0.00390937831, -4.45743281e-05, 0.0944528729, 0.00201592711, 0.0033393479, 9.59e-08],
+            [6, 1.00001109, -1.7966644e-05, 0.00467414828, -3.31264782e-05, 0.113268547, 0.00305753225, 0.00380603038, 1.64e-07],
+            [7, 1.00003791, -1.76307731e-05, 0.00545943761, -3.28533388e-05, 0.131668001, 0.00419698888, 0.00428148033, 9.59e-08],
+            [8, 1.00003433, -2.29984871e-05, 0.00609425874, 3.06322181e-06, 0.150924355, 0.00566896936, 0.00473306561, 1.64e-07],
+            [9, 1.00002933, -3.25651672e-05, 0.00687524211, 1.33488502e-05, 0.169052705, 0.00695743132, 0.00558837224, 1.39e-06],
+            [10, 1.00002396, -1.06636826e-05, 0.00763842929, 1.57604773e-05, 0.187034205, 0.00887603499, 0.005891582, 1.15e-06],
+            [11, 1.00001919, -3.86080901e-05, 0.00834825542, 9.08261427e-06, 0.205212206, 0.0105350604, 0.00634628907, 3.33e-06],
+            [12, 1.00001431, -4.45167279e-05, 0.00909336191, -4.48290666e-06, 0.222812325, 0.0124852601, 0.00677372888, 2.67e-06],
+            [13, 1.00001121, -6.85997147e-05, 0.00983982347, 9.3846611e-06, 0.240332395, 0.0145321731, 0.00702416804, 2.78e-06],
+            [14, 1.00000346, -8.76227787e-05, 0.0105694458, -1.33144476e-05, 0.257509947, 0.016768435, 0.00752048846, 3.43e-06],
+            [15, 0.999995351, -6.88358559e-05, 0.0112812258, 8.68650841e-06, 0.274495423, 0.0193840824, 0.00776700489, 8.73e-06],
+            [16, 0.999987066, -0.000114105977, 0.0119195953, -2.11666829e-05, 0.291631162, 0.0217242427, 0.00830065459, 5.42e-06],
+            [17, 0.999976099, -0.00015537352, 0.0126472348, -2.08121128e-05, 0.307851613, 0.0243788809, 0.00817339588, 2.82e-05],
+            [18, 0.999962807, -7.22438344e-05, 0.013301814, -5.83753535e-06, 0.324041009, 0.0279089063, 0.00885377917, 2.31e-05],
+            [19, 0.999942422, -0.000100343634, 0.0139474235, -1.68992956e-05, 0.339920819, 0.030763885, 0.00918225013, 1.04e-05],
+            [20, 0.99993521, -6.27931222e-05, 0.0144481305, -7.47550621e-06, 0.356125146, 0.0342109688, 0.00979005359, 1.7e-05],
+            [21, 0.999924302, -7.49909086e-05, 0.0151762674, -5.19245878e-05, 0.370596588, 0.0376501307, 0.0102438033, 2.71e-05],
+            [22, 0.999915719, 1.94489203e-05, 0.0157124531, 1.12410453e-05, 0.385792315, 0.0418976992, 0.0107438108, 1.01e-05],
+            [23, 0.999905527, 3.28311908e-05, 0.0163195543, -5.41364625e-06, 0.400155991, 0.0456165299, 0.0110597396, 1.83e-05],
+            [24, 0.999895096, -4.85771452e-05, 0.0168807749, -4.54831024e-07, 0.414284408, 0.0489860587, 0.0111473026, 4.67e-05],
+            [25, 0.999882102, -1.35529153e-05, 0.0174661968, -1.93380165e-05, 0.42783463, 0.0530802608, 0.011317635, 1.62e-05],
+            [26, 0.999872029, 1.6445445e-05, 0.0180335976, -1.20599725e-06, 0.440790951, 0.0572900809, 0.0118266838, 1.63e-05],
+            [27, 0.999862731, -6.84831757e-05, 0.0185431335, -5.99051637e-05, 0.453738451, 0.0609148145, 0.0118053081, 1.64e-05],
+            [28, 0.999852657, 1.39886361e-05, 0.0190861207, -7.02683174e-05, 0.465687633, 0.0657366067, 0.0125056095, 1.65e-05],
+            [29, 0.999844134, 5.79072594e-06, 0.0195504185, -6.37704943e-05, 0.477763474, 0.0701780096, 0.0124453763, 3.69e-05],
+            [30, 0.999836326, 9.66286734e-06, 0.0199958906, -5.25603136e-05, 0.489191145, 0.0748299733, 0.0129872765, 4.94e-05],
+            [31, 0.999830484, 4.35336369e-05, 0.0203928445, 1.15217626e-05, 0.500307858, 0.0798650682, 0.0132699497, 7.02e-05],
+            [32, 0.999822199, 0.00011332093, 0.0207985956, 5.92589931e-05, 0.510814607, 0.0850832835, 0.013854051, 7.42e-05],
+            [33, 0.999813139, 4.39920332e-05, 0.0212415904, 3.75707205e-05, 0.520388365, 0.0894212276, 0.0140411668, 8.86e-05],
+            [34, 0.999806046, 4.04715756e-05, 0.0215879716, 2.03914715e-05, 0.530097961, 0.094332017, 0.0141546354, 9.69e-05],
+        ],
+    },
+}
+JAX_TRACK_ACCEPT_SPREAD = {
+    "easy": {
+        "frames": (200, 200),
+        "failed": (0, 0),
+        "idepth_rmse": (0.02860487670637667, 0.028738735783845185),
+        "precision": (1.0, 1.0),
+        "recall": (0.8542815429687499, 0.8544557942708332),
+        "coverage": (0.8516764640808105, 0.8548502922058105),
+        "ate_rmse": (0.004394539662384737, 0.005000753362575387),
+        "ate_rmse_sim3": (0.0041383467810793585, 0.0047271764760814655),
+        "gt_path_length": (2.643495964324188, 2.643495964324188),
+        "rpe_trans_rmse": (0.0005944293112865234, 0.0006069214514733884),
+        "rpe_rot_rmse_deg": (0.010791517113334126, 0.010937679725570306),
+        "rpe30_trans_rmse": (0.005570244650839392, 0.006303761504692821),
+        "rpe30_rot_rmse_deg": (0.07936589630828049, 0.08637832086915276),
+        "track_failed_frames": (0, 0),
+        "relocalizations": (0, 0),
+    },
+    "easy_ba": {
+        "frames": (200, 200),
+        "failed": (0, 0),
+        "idepth_rmse": (0.02973144467920065, 0.03253225232474506),
+        "precision": (1.0, 1.0),
+        "recall": (0.855053369140625, 0.86435458984375),
+        "coverage": (0.8465267419815063, 0.8900228142738342),
+        "ate_rmse": (0.005723843751799837, 0.016293811628298963),
+        "ate_rmse_sim3": (0.0026053723457874494, 0.006447014843386079),
+        "gt_path_length": (2.643495964324188, 2.643495964324188),
+        "rpe_trans_rmse": (0.0006111892775733234, 0.0008180280092683388),
+        "rpe_rot_rmse_deg": (0.01073105298500462, 0.012874451414749393),
+        "rpe30_trans_rmse": (0.005789808043247339, 0.012919497277190632),
+        "rpe30_rot_rmse_deg": (0.059642653099890315, 0.13409005398969387),
+        "track_failed_frames": (0, 0),
+        "relocalizations": (0, 0),
+        "ba_solves": (23, 28),
+        "ba_costs": [(2.822347640991211, 2.8223793506622314), (2.3683390617370605, 2.3944759368896484), (2.761955499649048, 2.7621121406555176)],
+    },
+    "low_texture": {
+        "frames": (200, 200),
+        "failed": (0, 0),
+        "idepth_rmse": (0.03219153127633035, 0.03376659939065576),
+        "precision": (1.0, 1.0),
+        "recall": (0.8677171061197916, 0.8685719401041666),
+        "coverage": (0.84033203125, 0.8512630462646484),
+        "ate_rmse": (0.0060899345710282195, 0.008121446767363942),
+        "ate_rmse_sim3": (0.0059150413362488215, 0.0079572613825604),
+        "gt_path_length": (2.643495964324188, 2.643495964324188),
+        "rpe_trans_rmse": (0.002456304912008516, 0.005973607662840284),
+        "rpe_rot_rmse_deg": (0.04837327453107416, 0.11854695056814707),
+        "rpe30_trans_rmse": (0.007214005008102332, 0.010290482285059516),
+        "rpe30_rot_rmse_deg": (0.12799411741045252, 0.19502250707880914),
+        "track_failed_frames": (0, 0),
+        "relocalizations": (0, 0),
+    },
+    "rotation": {
+        "frames": (200, 200),
+        "failed": (0, 0),
+        "idepth_rmse": (0.03669697434641421, 0.040977276712656024),
+        "precision": (1.0, 1.0),
+        "recall": (0.7787625162760418, 0.7819584798177084),
+        "coverage": (0.7368489503860474, 0.7518978118896484),
+        "ate_rmse": (0.009391362497051524, 0.010061900803846367),
+        "ate_rmse_sim3": (0.0024399393622364764, 0.0035317182242105877),
+        "gt_path_length": (0.267369855260486, 0.267369855260486),
+        "rpe_trans_rmse": (0.0005177460209545535, 0.0005429901895150086),
+        "rpe_rot_rmse_deg": (0.009384612576669475, 0.00987298013393876),
+        "rpe30_trans_rmse": (0.00857156204049293, 0.009798179603004883),
+        "rpe30_rot_rmse_deg": (0.1630344765742632, 0.1838725241153101),
+        "track_failed_frames": (0, 0),
+        "relocalizations": (0, 0),
+    },
+    "rotation_ba": {
+        "frames": (200, 200),
+        "failed": (0, 0),
+        "idepth_rmse": (0.03721799096092582, 0.0434986669011414),
+        "precision": (1.0, 1.0),
+        "recall": (0.7848537272135416, 0.7917287923177083),
+        "coverage": (0.7197005152702332, 0.7492057681083679),
+        "ate_rmse": (0.007307216430272451, 0.010993846994989407),
+        "ate_rmse_sim3": (0.0023052764890729013, 0.0038533311195003386),
+        "gt_path_length": (0.267369855260486, 0.267369855260486),
+        "rpe_trans_rmse": (0.0005195393028547635, 0.0005507648194861349),
+        "rpe_rot_rmse_deg": (0.009440716594267443, 0.010086369637522359),
+        "rpe30_trans_rmse": (0.007160306130502695, 0.009967314208352101),
+        "rpe30_rot_rmse_deg": (0.14587804905457946, 0.19676545203993606),
+        "track_failed_frames": (0, 0),
+        "relocalizations": (0, 0),
+        "ba_solves": (25, 28),
+        "ba_costs": [(1.627350091934204, 1.6274971961975098), (1.6090975999832153, 1.6093525886535645), (2.2048659324645996, 2.2312045097351074)],
+    },
+    "mav": {
+        "frames": (200, 200),
+        "failed": (0, 0),
+        "idepth_rmse": (0.03872619372792542, 0.038993773628026245),
+        "precision": (1.0, 1.0),
+        "recall": (0.7511710286458333, 0.7514840494791667),
+        "coverage": (0.6445377469062805, 0.6555240750312805),
+        "ate_rmse": (0.011072163097593837, 0.0115237274750341),
+        "ate_rmse_sim3": (0.00536709608855061, 0.005650875164061267),
+        "gt_path_length": (3.3453696373496147, 3.3453696373496147),
+        "rpe_trans_rmse": (0.0006568617707994316, 0.0007593367279138683),
+        "rpe_rot_rmse_deg": (0.012140745400085974, 0.015161580210662868),
+        "rpe30_trans_rmse": (0.008453566378497201, 0.008626323657725015),
+        "rpe30_rot_rmse_deg": (0.0893634462865107, 0.09465497633135596),
+        "track_failed_frames": (0, 0),
+        "relocalizations": (0, 0),
+    },
+    "occlusion": {
+        "frames": (190, 190),
+        "failed": (0, 0),
+        "idepth_rmse": (0.02946571512637954, 0.029579889166511986),
+        "precision": (1.0, 1.0),
+        "recall": (0.8540553556743421, 0.8544596182839912),
+        "coverage": (0.8603515625, 0.8645344972610474),
+        "ate_rmse": (0.004098322511763632, 0.0046924544300803415),
+        "ate_rmse_sim3": (0.004096321349222194, 0.004689540792460238),
+        "gt_path_length": (2.6433636216881906, 2.6433636216881906),
+        "rpe_trans_rmse": (0.0006274006045083546, 0.0006466009224945104),
+        "rpe_rot_rmse_deg": (0.011876318268054605, 0.012097265913298395),
+        "rpe30_trans_rmse": (0.005108024025871984, 0.0058370214762756886),
+        "rpe30_rot_rmse_deg": (0.09940445162353553, 0.1046940365382085),
+        "track_failed_frames": (10, 10),
+        "relocalizations": (1, 1),
+    },
+    "pod_dense": {
+        "frames": (200, 200),
+        "failed": (0, 0),
+        "idepth_rmse": (0.040418007099069654, 0.055129185295663775),
+        "precision": (1.0, 1.0),
+        "recall": (0.7592030924479167, 0.7600398763020835),
+        "coverage": (0.7852051258087158, 0.790856122970581),
+        "ate_rmse": (0.0034984819000319334, 0.008586755700654456),
+        "ate_rmse_sim3": (0.003483962648049998, 0.008459873662377488),
+        "gt_path_length": (2.643495964324188, 2.643495964324188),
+        "rpe_trans_rmse": (0.0008393950422144811, 0.00123810912458506),
+        "rpe_rot_rmse_deg": (0.01812331798918006, 0.024682641646164988),
+        "rpe30_trans_rmse": (0.005412419653681231, 0.011625402458378538),
+        "rpe30_rot_rmse_deg": (0.20753482221036645, 0.3205960743674542),
+        "track_failed_frames": (0, 0),
+        "relocalizations": (0, 0),
+        "ba_solves": (32, 32),
+        "ba_costs": [(1.675466775894165, 1.6760272979736328), (1.7501486539840698, 1.7504709959030151), (1.8398982286453247, 1.8412401676177979)],
+    },
+}
+
+
+def track_sequence(name):
+    """A tracking acceptance run's `make_sequence` keyword arguments, in
+    full (those of accept_sequence)."""
+    return dict(dict(motion="strafe", scene="room", texture_gain=1.0,
+                     exposure_amp=0.0), **TRACK_ACCEPT_RUNS[name]["seq"])
+
+
+def track_argv(name):
+    """The offline runner's arguments of a tracking acceptance run."""
+    argv = ["--dataset", "synthetic", "--resolution", "vga", "--frames",
+            str(ACCEPT_FRAMES), "--pose-source", "tracking"]
+    for key, value in TRACK_ACCEPT_RUNS[name]["seq"].items():
+        argv += ["--" + key.replace("_", "-"), str(value)]
+    extra = list(TRACK_ACCEPT_RUNS[name]["args"])
+    if "--config" in extra:
+        i = extra.index("--config") + 1
+        extra[i] = os.path.join(REPO, extra[i])
+    return argv + extra
+
+
+def track_option(name, flag):
+    """The value of a tracking acceptance run's extra argument `flag`
+    (None if absent; True for a flag without a value)."""
+    args = list(TRACK_ACCEPT_RUNS[name]["args"])
+    if flag not in args:
+        return None
+    i = args.index(flag)
+    nxt = args[i + 1] if i + 1 < len(args) else None
+    return True if nxt is None or nxt.startswith("--") else nxt
 
 
 def accept_sequence(name):
@@ -457,13 +1390,33 @@ def accept_argv(name):
     return argv + (["--zero-mean-ssd"] if spec.get("zero_mean_ssd") else [])
 
 
+GATE_OPS = {"<": lambda a, b: a < b, ">": lambda a, b: a > b,
+            "<=": lambda a, b: a <= b, ">=": lambda a, b: a >= b,
+            "==": lambda a, b: a == b}
+
+
+def gate_bound(summary, bound):
+    """A gate's bound on a summary: a number, or (f, key) for
+    f * summary[key]."""
+    if isinstance(bound, tuple):
+        f, key = bound
+        return None if summary[key] is None else f * summary[key]
+    return bound
+
+
+def gate_text(key, op, bound):
+    if isinstance(bound, tuple):
+        bound = f"{bound[0]} * {bound[1]}"
+    return f"{key} {op} {bound}"
+
+
 def gate_results(summary, gates):
     """[(key, op, bound, value, passed)] of a run's summary against
-    gates."""
+    gates; bound as written in the gate."""
     out = []
     for key, op, bound in gates:
-        v = summary[key]
-        ok = v is not None and (v < bound if op == "<" else v > bound)
+        v, b = summary[key], gate_bound(summary, bound)
+        ok = v is not None and b is not None and GATE_OPS[op](v, b)
         out.append((key, op, bound, v, bool(ok)))
     return out
 
@@ -478,8 +1431,13 @@ V3_DEFAULTS = {"tri_block": 128, "s_blocks": 5, "l_blocks": 4,
                "long_thresh": 64.0}
 
 
+T_START = time.perf_counter()
+
+
 def phase(name, **kv):
-    print(json.dumps({"phase": name, **kv}), flush=True)
+    """One phase line; t_s is the seconds since the script started."""
+    print(json.dumps({"phase": name, "t_s": round(
+        time.perf_counter() - T_START, 1), **kv}), flush=True)
 
 
 def port_kw(kw):
@@ -1524,25 +2482,37 @@ def track_ba_prefix(node):
             "solves": n, "costs": costs, "cost_rel_diff": cost_rel}
 
 
-def outside_spread(vals):
-    """The metrics of vals (the keys of JAX_TRACK_BA_SPREAD) that lie
-    outside phase 8's bands about JAX_TRACK_BA_SPREAD, each with its
-    value and the spread: rmse relative to the spread's nearer end
+# The integer counts of a run, held inside a spread with no band.
+COUNT_KEYS = ("frames", "failed", "track_failed_frames", "relocalizations",
+              "ba_solves")
+
+
+def spread_band(key, end):
+    """Phase 8's band about a spread's nearer end `end`: rmse relative
     (JAX_BAND), recall and coverage absolute (JAX_BAND), ATE 25 % of the
-    nearer end (at least 1e-3 m), the number of solves inside it."""
+    end (at least 1e-3 m), the counts none, any other metric (RPE) 25 %
+    of the end."""
+    if key in COUNT_KEYS:
+        return 0
+    if key == "idepth_rmse":
+        return JAX_BAND[key] * end
+    if key in JAX_BAND:
+        return JAX_BAND[key]
+    if key == "ate_rmse":
+        return max(0.25 * end, 1e-3)
+    return 0.25 * abs(end)
+
+
+def outside_spread(vals, spread=None):
+    """The metrics of vals that lie outside spread_band about their
+    spread (JAX_TRACK_BA_SPREAD unless given: key -> (min, max) over the
+    JAX package's runs), each with its value and the spread."""
+    spread = JAX_TRACK_BA_SPREAD if spread is None else spread
     out = {}
     for k, v in vals.items():
-        lo, hi = JAX_TRACK_BA_SPREAD[k]
+        lo, hi = spread[k]
         end = min(max(v, lo), hi)
-        if k == "ba_solves":
-            band = 0
-        elif k == "idepth_rmse":
-            band = JAX_BAND[k] * end
-        elif k == "ate_rmse":
-            band = max(0.25 * end, 1e-3)
-        else:
-            band = JAX_BAND[k]
-        if abs(v - end) > band:
+        if not abs(v - end) <= spread_band(k, end):
             out[k] = (v, lo, hi)
     return out
 
@@ -3103,11 +4073,12 @@ def cpu_frame_digests(jobs, out_dir, threads):
 
 class CpuFrames:
     """The CPU's frames of every sequence the card's phases read (phase
-    4's 60 frames and each distinct sequence of ACCEPT_RUNS at 200), as
+    4's 60 frames and each distinct sequence of ACCEPT_RUNS and
+    TRACK_ACCEPT_RUNS at 200), as
     frame digests made by cpu_frame_digests in a process of its own,
     which runs beside the card's phases on `threads` cores, in the order
-    phase 14 asks for them. The JAX package's runs that phases 9, 13 and
-    14 are held to read these frames."""
+    phase 14 asks for them. The JAX package's runs that phases 9, 13, 14
+    and 15 are held to read these frames."""
 
     def __init__(self, out, threads=4):
         import multiprocessing
@@ -3115,8 +4086,8 @@ class CpuFrames:
         shutil.rmtree(self.dir, ignore_errors=True)
         os.makedirs(self.dir)
         scenes = {}
-        for name in ACCEPT_RUNS:
-            kw = accept_sequence(name)
+        for kw in ([accept_sequence(n) for n in ACCEPT_RUNS]
+                   + [track_sequence(n) for n in TRACK_ACCEPT_RUNS]):
             kws = scenes.setdefault((kw["motion"], kw["scene"]), [])
             if kw not in kws:
                 kws.append(kw)
@@ -3184,6 +4155,393 @@ def acceptance_path(dev, out, smi, cpu_frames):
           v4_launches={k: r["launches"]["v4"] for k, r in runs.items()},
           seconds=time.perf_counter() - t_phase)
     assert not fails, f"acceptance runs outside the JAX run: {fails}"
+
+
+# The TPU v4 kernel's slab budgets (flame_ros_tpu/ops/raster_pallas.py:
+# 391-392, :438): short candidates a tile of 2 rows, long triangles.
+V4_DEFAULTS = {"cand_s": 384, "cand_l": 128, "long_thresh": 48.0}
+
+
+def v4_budgets_hold(rc, args, H):
+    """Whether the TPU v4 kernel's slab budgets would hold on this mesh,
+    from the port's setup; the JAX wrapper runs v2 where they do not
+    (flame_ros_tpu/ops/raster_pallas.py:438)."""
+    _, lo_pos, hi_pos, counts = rc.v4_setup(
+        *args, height=H, row_tile=2, long_thresh=V4_DEFAULTS["long_thresh"])
+    n_short, n_live = counts.tolist()
+    return (int((hi_pos - lo_pos).max()) <= V4_DEFAULTS["cand_s"]
+            and n_live - n_short <= V4_DEFAULTS["cand_l"])
+
+
+def track_summary(res, node):
+    """A tracking run's unrounded summary, in the JAX reference's keys."""
+    import numpy as np
+    out = {"frames": res.frames_processed, "failed": res.frames_failed,
+           "idepth_rmse": res.mean_rmse, "precision": res.mean_precision,
+           "recall": res.mean_recall, "coverage": res.final_coverage,
+           "ate_rmse": res.ate_rmse, "ate_rmse_sim3": res.ate_rmse_sim3,
+           "gt_path_length": res.gt_path_length,
+           "rpe_trans_rmse": res.rpe_trans_rmse,
+           "rpe_rot_rmse_deg": res.rpe_rot_rmse_deg,
+           "rpe30_trans_rmse": res.rpe30_trans_rmse,
+           "rpe30_rot_rmse_deg": res.rpe30_rot_rmse_deg,
+           "track_failed_frames": res.track_failed_frames,
+           "relocalizations": res.relocalizations}
+    if node.ba_refine:
+        out["ba_solves"] = len(node.ba_costs)
+    return {k: (float(v) if isinstance(v, (float, np.floating)) else v)
+            for k, v in out.items()}
+
+
+def v4_timing(rc, args, H, W):
+    """v4 on one raster's inputs: the wrapper, the kernel alone (one
+    launch between two events; back to back on the card) and the plain
+    version (CUDA-event medians, ms), its bound and whether the TPU v4's
+    budgets would hold."""
+    import torch
+    bare = bare_launch(rc, "v4", args, H, W, {})
+    b_ops = (bbox_pairs(torch, *args, H, W) * INSTR_PER_TEST["v4"]
+             / F32_INSTR_RATE * 1e3)
+    b_bytes = (bare.slab_bytes + H * W * 4) / PEAK_BYTES * 1e3
+    return dict(
+        triangles=int(args[1].shape[0]), vertices=int(args[0].shape[0]),
+        live_triangles=int(args[2].sum()),
+        ms=cuda_median_ms(lambda: rc.rasterize_tri_ids_v4(
+            *args, height=H, width=W)),
+        kernel_only_ms=cuda_median_ms(bare), kernel_device_ms=device_ms(bare),
+        plain_ms=cuda_median_ms(lambda: rc.rasterize_tri_ids_v4_ref(
+            *args, height=H, width=W), reps=5, warmup=1),
+        bound_ms=max(b_ops, b_bytes),
+        bound_by="operations" if b_ops >= b_bytes else "bytes",
+        tpu_v4_budgets_hold=v4_budgets_hold(rc, args, H))
+
+
+def track_acceptance_run(name, device, out_dir):
+    """One run of TRACK_ACCEPT_RUNS through the port's CLI, `offline_runner.
+    main --pose-source tracking`, on `device` (the frames render there).
+    The runner's frames are tapped for their frame_digest (before any
+    occlusion) and its `run_offline_tracking` gets a nodelet of ours,
+    whose `_process` is timed on the host clock (to the end of its stats
+    read) and counts v4's launches per frame. The id buffer is recomputed
+    (check_idmap) after the update of the first non-poseframe from frame
+    ACCEPT_CHECK["frame"] on, and of the first poseframe from engine frame
+    ACCEPT_CHECK["poseframe"] on (after its install). Every
+    hybrid_bundle_adjust call's point count is kept (and the sharded
+    solver's) with the frame it follows; on the card also its CUDA-event
+    ms, and one more call at the last inputs gives its device launches and
+    busy ms. Returns a dict: the summary, the trajectory's poses, the BA
+    costs, ms per frame, launches, work, the checks, the digests and the
+    second check's raster inputs (check_args)."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from flame_ros_torch.frontends import nodelet as nodelet_mod
+    from flame_ros_torch.frontends import offline_runner
+    from flame_ros_torch.frontends.nodelet import FlameNodelet
+    from flame_ros_torch.ops import raster_cuda as rc
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    run_dir = os.path.join(out_dir, name)
+    os.makedirs(run_dir, exist_ok=True)
+    argv = track_argv(name) + ["--device", str(dev), "--out", run_dir]
+    digests, ms, per_frame, checks, held = [], {}, {}, [], {}
+    solves, sharded, solve_frames = [], [], []
+    orig_build = offline_runner._build_frames
+    orig_track = offline_runner.run_offline_tracking
+    orig_hb = nodelet_mod.hybrid_bundle_adjust
+    orig_sh = nodelet_mod.hybrid_bundle_adjust_sharded
+    timer = CallTimer(nodelet_mod, "hybrid_bundle_adjust") if cuda else None
+
+    def spy_hb(*a, **kw):
+        solves.append(int(a[5].shape[0]))
+        solve_frames.append(int(held["node"].trajectory[-1][0]))
+        return (timer or orig_hb)(*a, **kw)
+
+    def spy_sh(*a, **kw):
+        sharded.append(int(a[6].shape[0]))
+        return orig_sh(*a, **kw)
+
+    def build(args, device):
+        frames, cam = orig_build(args, device)
+
+        def tap():
+            for f in frames:
+                digests.append(frame_digest(f.gray, f.depth, f.quat,
+                                            f.trans))
+                yield f
+        return tap(), cam
+
+    def check(engine, frame, poseframe):
+        t = time.perf_counter()
+        n_px, args = check_idmap(engine, frame)
+        checks.append({"frame": frame, "poseframe": poseframe,
+                       "poseframes_so_far": engine._num_poseframes,
+                       "triangles": int(args[1].shape[0]),
+                       "order_split_px": n_px})
+        held["args"] = args
+        return time.perf_counter() - t
+
+    def tracked(frames, cam, params, device=None, **kw):
+        node = FlameNodelet(cam, params, pose_source="tracking",
+                            ba_refine=kw.get("ba_refine", False),
+                            eval_gt_depth=True, trajectory_cap=0,
+                            device=device)
+        engine = node.engine
+        held["node"] = node
+        process, update = node._process, engine.update
+        skip = {}
+
+        def timed(frame):
+            mark = rc.rasterize_tri_ids_v4.launches
+            i = frame.img_id
+            t0 = time.perf_counter()
+            process(frame)
+            ms[i] = (time.perf_counter() - t0 - skip.pop(i, 0.0)) * 1e3
+            per_frame[i] = rc.rasterize_tri_ids_v4.launches - mark
+
+        def checked(t, img_id, *a, **kw):
+            # Tracking mode updates directly (track, a poseframe's
+            # install, smooth), so after an update the state holds the
+            # inputs of its raster; the check's seconds come off the frame.
+            pf = engine._num_poseframes
+            ok = update(t, img_id, *a, **kw)
+            is_pf = engine._num_poseframes != pf
+            if ok and (len(checks) == 0 and not is_pf
+                       and img_id >= ACCEPT_CHECK["frame"]
+                       or len(checks) == 1 and is_pf
+                       and engine._frame_count - 1
+                       >= ACCEPT_CHECK["poseframe"]):
+                skip[img_id] = check(engine, int(img_id), is_pf)
+            return ok
+
+        node._process, engine.update = timed, checked
+        return orig_track(frames, cam, params, device=device, node=node,
+                          **kw)
+
+    rc.reset_counters()
+    line = io.StringIO()
+    offline_runner._build_frames = build
+    offline_runner.run_offline_tracking = tracked
+    nodelet_mod.hybrid_bundle_adjust = spy_hb
+    nodelet_mod.hybrid_bundle_adjust_sharded = spy_sh
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(line):
+            res = offline_runner.main(argv)
+    finally:
+        offline_runner._build_frames = orig_build
+        offline_runner.run_offline_tracking = orig_track
+        nodelet_mod.hybrid_bundle_adjust = orig_hb
+        nodelet_mod.hybrid_bundle_adjust_sharded = orig_sh
+    seconds = time.perf_counter() - t0
+    launches, work = launch_counts(rc, dev) if cuda else (
+        {"v4": rc.rasterize_tri_ids_v4.launches,
+         "v2": rc.rasterize_tri_ids_v2.launches,
+         "v3": rc.rasterize_tri_ids_v3.launches}, None)
+    printed = json.loads(line.getvalue().strip().splitlines()[-1])
+    node = held["node"]
+    ids = [int(i) for i, _, _ in node.trajectory]
+    poses = [[i] + p.q.detach().cpu().numpy().ravel().tolist()
+             + p.t.detach().cpu().numpy().ravel().tolist()
+             for i, _, p in node.trajectory]
+    steady = [ms[i] for i in ids[5:]]
+    out = {"run": name, "argv": argv[:-4], "printed": printed,
+           "summary": track_summary(res, node), "poses": poses,
+           "ba_costs": list(node.ba_costs), "ba_frames": solve_frames,
+           "ba_points": solves,
+           "ba_sharded_points": sharded, "digests": digests,
+           "ms_per_frame_p50": float(np.percentile(steady, 50)),
+           "ms_per_frame_p95": float(np.percentile(steady, 95)),
+           "seconds": seconds, "launches": launches, "work": work,
+           "v4_launches_min_tracked_frame": min(per_frame[i] for i in ids),
+           "checks": checks}
+    if timer is not None and timer.events:
+        hms = timer.ms()
+        hargs, hkw = timer.last
+        events, busy = device_events(lambda: orig_hb(*hargs, **hkw))
+        out["hybrid_ba"] = dict(
+            calls=len(hms), ms_p50=float(np.percentile(hms, 50)),
+            ms_max=max(hms),
+            host_ms_p50=float(np.percentile(timer.host_s, 50)) * 1e3,
+            launches_per_call=events, device_busy_ms_per_call=busy)
+    out["check_args"] = held.get("args")
+    assert printed["frames"] == out["summary"]["frames"], out["summary"]
+    assert len(digests) == ACCEPT_FRAMES, len(digests)
+    assert [c["poseframe"] for c in checks] == [False, True], checks
+    K = node.engine.params.engine.max_keyframes
+    assert checks[1]["poseframes_so_far"] > 3 * K, checks
+    # Both id buffers at the configuration's full triangle count.
+    T = node.engine.params.engine.max_triangles
+    assert [c["triangles"] for c in checks] == [T, T], (T, checks)
+    if cuda:
+        # v4 on every tracked frame, the device's own count agreeing, v2
+        # and v3 never.
+        assert out["v4_launches_min_tracked_frame"] >= 1, per_frame
+        assert launches["v2"] == 0 and launches["v3"] == 0, launches
+        assert work == {"v4": launches["v4"], "v2": 0, "v3": 0}, work
+    else:
+        assert launches == {"v4": 0, "v2": 0, "v3": 0}, launches
+    return out
+
+
+def track_verdict(name, r):
+    """A tracking acceptance run `r` (track_acceptance_run) against the
+    JAX package's runs of its frames: on every frame before the parting
+    frame, its pose no further from the unmoved run's (JAX_TRACK_ACCEPT)
+    than the perturbed runs' poses are there, plus TRACK_BA_POSE_TOL; with
+    BA its first three costs within
+    TRACK_BA_COST_TOL relative of the JAX runs' smallest and largest of
+    each (the unmoved run's where they agree); rmse, recall, coverage,
+    ATE, RPE and the solves within spread_band about the spread of the
+    unmoved and perturbed runs (JAX_TRACK_ACCEPT_SPREAD); no failed engine
+    frame; each
+    gate of the JAX test that the unmoved JAX run passes, passed, and the
+    metric of each gate it fails held to the spread; pod_dense's solves
+    unsharded, at least `solves_min`, each at `ba_points`. Returns
+    (verdict dict, ok)."""
+    import numpy as np
+    spec = TRACK_ACCEPT_RUNS[name]
+    ref, spread = JAX_TRACK_ACCEPT[name], JAX_TRACK_ACCEPT_SPREAD[name]
+    s = r["summary"]
+    got = {int(p[0]): np.asarray(p[1:], np.float64) for p in r["poses"]}
+    # Per frame: the distance from the unmoved run's pose, and how far it
+    # exceeds the perturbed runs' largest distance there.
+    dist = {int(p[0]): (float(np.abs(got[int(p[0])] - np.asarray(p[1:8])).max())
+                        if int(p[0]) in got else float("inf"), p[8])
+            for p in ref["poses"]}
+    pose_diff = max((d for d, _ in dist.values()), default=0.0)
+    pose_excess = max((d - m for d, m in dist.values()), default=0.0)
+    cost_spread = spread.get("ba_costs", [])
+    costs = r["ba_costs"][:len(cost_spread)]
+    cost_rel = (max((max(lo / c - 1.0, c / hi - 1.0, 0.0)
+                     for c, (lo, hi) in zip(costs, cost_spread)),
+                    default=0.0)
+                if len(costs) == len(cost_spread) else float("inf"))
+    keys = ["idepth_rmse", "recall", "coverage", "ate_rmse",
+            "rpe_trans_rmse", "rpe_rot_rmse_deg"]
+    if "ba_solves" in ref:
+        keys.append("ba_solves")
+    port = gate_results(s, spec["gates"])
+    jax = gate_results(ref, spec["gates"])
+    must = [p for p, j in zip(port, jax) if j[4]]
+    held_to = [gate_text(k, op, b) for k, op, b, _, ok in jax if not ok]
+    keys += [k for k, _, _, _, ok in jax if not ok and k not in keys]
+    outside = outside_spread({k: s[k] for k in keys}, spread)
+    failed = [f"{gate_text(k, op, b)}: {v}" for k, op, b, v, ok in must
+              if not ok]
+    v = {"parting_frame": ref["parting_frame"],
+         "poses_checked": len(ref["poses"]), "pose_diff": pose_diff,
+         "pose_beyond_jax_runs": pose_excess,
+         "costs": costs, "jax_costs": ref.get("ba_costs"),
+         "jax_cost_spread": cost_spread,
+         "cost_rel_diff": cost_rel, "outside_jax_spread": outside,
+         "gates_passed_by_jax": [gate_text(k, op, b)
+                                 for k, op, b, *_ in must],
+         "gates_failed": failed, "held_to_jax_run": held_to,
+         "jax_route": {"devices": ref["jax_devices"],
+                       **ref["ba_route"]},
+         "port_route": {"unsharded": {"solves": len(r["ba_points"]),
+                                      "points": sorted(set(r["ba_points"]))},
+                        "sharded": {"solves": len(r["ba_sharded_points"]),
+                                    "points": sorted(set(
+                                        r["ba_sharded_points"]))}}}
+    ok = (pose_excess <= TRACK_BA_POSE_TOL and cost_rel <= TRACK_BA_COST_TOL
+          and not outside and not failed and s["failed"] == 0)
+    if "solves_min" in spec:
+        v["solves_at_budget"] = (
+            not r["ba_sharded_points"]
+            and len(r["ba_points"]) >= spec["solves_min"]
+            and set(r["ba_points"]) == {spec["ba_points"]})
+        ok = ok and v["solves_at_budget"]
+    return v, ok
+
+
+# Phase 15's runs, over four processes on the one card: each run is
+# bound by the host's launches (tracking ~12k a frame, BA ~16k a solve),
+# and one after the other they take ~650 s. The first part runs in the
+# script's own process.
+TRACK_PARTS = (("pod_dense", "occlusion"), ("easy_ba", "mav"),
+               ("rotation_ba", "low_texture"), ("easy", "rotation"))
+
+
+def track_runs(names, device, out_dir, path=None):
+    """track_acceptance_run of each of names in turn. With path (a process
+    of its own), the results go to that JSON file instead, without their
+    check_args."""
+    if path is not None:
+        sys.path.insert(0, REPO)
+    out = {name: track_acceptance_run(name, device, out_dir)
+           for name in names}
+    if path is None:
+        return out
+    for r in out.values():
+        r.pop("check_args")
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+
+
+def tracking_acceptance_path(dev, out, smi, cpu_frames):
+    """Phase 15: the eight runs of TRACK_ACCEPT_RUNS on the card, split
+    over TRACK_PARTS (four at a time), each reading the CPU's frames bit
+    for bit and held to the JAX package's runs of those frames by
+    track_verdict; then v4 timed alone on the pod-dense run's second id
+    check (T = 32768). Each run's result, its poses and verdict included,
+    is written to <out>/track_accept/<run>.json."""
+    import multiprocessing
+    from flame_ros_torch.datasets.synthetic import VGA
+    from flame_ros_torch.ops import raster_cuda as rc
+    t_phase = time.perf_counter()
+    root = os.path.join(out, "track_accept")
+    assert sorted(n for p in TRACK_PARTS for n in p) == sorted(
+        TRACK_ACCEPT_RUNS)
+    ctx = multiprocessing.get_context("spawn")
+    procs = []
+    for k, part in enumerate(TRACK_PARTS[1:]):
+        path = os.path.join(out, f"track_part{k + 1}.json")
+        if os.path.exists(path):
+            os.remove(path)
+        proc = ctx.Process(target=track_runs, args=(part, str(dev), root,
+                                                    path))
+        proc.start()
+        procs.append((proc, path))
+    runs = track_runs(TRACK_PARTS[0], dev, root)
+    for proc, path in procs:
+        proc.join()
+        if proc.exitcode != 0:
+            raise RuntimeError(f"phase 15 process of {path} ended with "
+                               f"code {proc.exitcode}")
+        with open(path) as f:
+            runs.update(json.load(f))
+    t_runs = time.perf_counter() - t_phase
+    pod = runs["pod_dense"]
+    v4 = v4_timing(rc, pod.pop("check_args"), VGA.height, VGA.width)
+    fails = []
+    for name in TRACK_ACCEPT_RUNS:
+        r = runs[name]
+        r.pop("check_args", None)
+        verdict, ok = track_verdict(name, r)
+        t1 = time.perf_counter()
+        differ = frames_differ(r["digests"], cpu_frames.digests(
+            ACCEPT_FRAMES, track_sequence(name)))
+        same = not any(differ.values())
+        with open(os.path.join(root, name + ".json"), "w") as f:
+            json.dump(dict(r, verdict=verdict, frames_differ=differ), f)
+        phase("tracking_acceptance", run=name, card=smi, ok=ok and same,
+              verdict=verdict, frames_equal_cpu=same, frames_differ=differ,
+              cpu_frames_wait_s=time.perf_counter() - t1,
+              jax_test=TRACK_ACCEPT_RUNS[name]["test"],
+              runs_at_a_time=len(TRACK_PARTS),
+              **({"v4_pod_density": v4} if name == "pod_dense" else {}),
+              **{k: r[k] for k in r if k not in ("run", "digests", "poses")})
+        if not (ok and same):
+            fails.append(name)
+    phase("tracking_acceptance_total", card=smi, runs=len(runs),
+          v4_launches={k: r["launches"]["v4"] for k, r in runs.items()},
+          runs_seconds=t_runs, seconds=time.perf_counter() - t_phase)
+    assert not fails, f"tracking runs outside the JAX runs: {fails}"
+    return runs, v4
 
 
 def main():
@@ -3555,6 +4913,9 @@ def main():
 
     # 14. the external-pose acceptance protocol --------------------------
     acceptance_path(dev, OUT, smi, cpu_frames)
+
+    # 15. the tracking-mode acceptance protocol --------------------------
+    tracking_acceptance_path(dev, OUT, smi, cpu_frames)
     cpu_frames.close()
 
     # Result lines -----------------------------------------------------

@@ -202,16 +202,44 @@ Phases, each printed as one line:
    16384 points, and whether the TPU v4's slab budgets would hold there;
    ms/frame p50/p95, `hybrid_bundle_adjust` ms, launches and busy ms a
    call, and v4 timed alone at pod density beside its bound, by the
-   card's name and power limit.
+   card's name and power limit;
+16. the streaming acceptance protocol of scripts/chip_acc_streaming.py
+   through the port (scripts/chip_acc_streaming_torch.py: windows of 6
+   host uint8 frames, prefetch depth 2, deferred Delaunay with
+   tri_backpressure="block", the GT stack staged on the card once, at
+   most 2 windows in flight, each window's stats read asynchronously)
+   over phase 14's default frames, every frame equal to the CPU's: (a)
+   the free-running product loop passes the JAX script's six gates (200
+   frames evaluated, 0 triangulations dropped, rmse < 0.05, precision >
+   0.95, steady recall > 0.70), none failed, every frame healthy, v4
+   launched on every frame and v2 and v3 never (wrapper counts and device
+   work counters), the id buffer after a poseframe past the third ring
+   wrap equal to plain v4's; (b) every stats row read asynchronously
+   equal bit for bit to its tensor read after a full synchronize; (c) the
+   same frames with the pinned install schedule (every pending Delaunay
+   waited for before each window), its launches counted as the free
+   run's: where the free run counted no stale window and no superseded
+   topology, every stats row and final state leaf equal bit for bit; (d)
+   the pinned run within JAX_BAND of the JAX package's pinned run of the
+   same frames (JAX_STREAM_ACCEPT; precision 0.02) and within
+   STREAM_TIGHT relative, its install count and evaluated frames equal,
+   every gate JAX passes passed, and the same run with the filter's
+   posterior means rounded to bfloat16 after each window (the tight
+   band's control) outside STREAM_TIGHT; fps, latency p50/p95,
+   ms/frame, host Delaunay ms per
+   poseframe and the install counters of both runs, and steady recall
+   beside phase 14's per-frame run, by the card's name and power limit.
 
 Any failure exits non-zero. The line before the last is the card's
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`; before
-it, one JSON line of per-kernel numbers. The last line is the contract
+it, one JSON line of per-kernel numbers (v4's launches: phase 4's and
+phase 16's free run's). The last line is the contract
 line {"ok": true, "device": {...}}. Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero and
 prints no result.
 """
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -1340,6 +1368,42 @@ JAX_TRACK_ACCEPT_SPREAD = {
     },
 }
 
+# Phase 16: the streaming acceptance protocol of
+# scripts/chip_acc_streaming.py through the port
+# (scripts/chip_acc_streaming_torch.py) on phase 14's default frames. The
+# JAX package's run of the same frames (the port's CPU rendering) with the
+# pinned install schedule, unrounded, and its seconds on an 8-core CPU
+# (beside a second run; --schedule free gave the same numbers there):
+#   JAX_PLATFORMS=cpu python scripts/jax_streaming_reference.py \
+#       --schedule pinned
+JAX_STREAM_ACCEPT = {
+    "frames": 200, "idepth_rmse": 0.02696071231737733, "precision": 1.0,
+    "recall": 0.7884406901041667, "steady_recall": 0.8291207465277777,
+    "steady_coverage": 0.8291207659244537,
+    "final_coverage": 0.8287304639816284, "frames_evaluated": 200,
+    "frames_failed": 0, "tri_dropped": 0, "topo_installs": 33,
+    "stale_tri_windows": 0, "tri_superseded": 0, "poseframes": 34,
+    "seconds": 205.4}
+# Phase 16 (d) holds the card's pinned run to it: rmse relative, the rest
+# absolute (JAX_BAND; precision 0.02), and these counts equal.
+STREAM_BAND = {"idepth_rmse": JAX_BAND["idepth_rmse"],
+               "recall": JAX_BAND["recall"],
+               "steady_recall": JAX_BAND["recall"],
+               "steady_coverage": JAX_BAND["coverage"],
+               "final_coverage": JAX_BAND["coverage"], "precision": 0.02}
+STREAM_EQUAL = ("topo_installs", "frames_evaluated")
+# JAX_BAND is the ceiling. A run that took the pinned schedule is also
+# held to STREAM_TIGHT, relative, on every key of STREAM_BAND: the card's
+# pinned run and the port's on the CPU sit at most 3.3e-6 from
+# JAX_STREAM_ACCEPT, while the band's control, which phase 16 runs and
+# which must leave it, moved rmse 4.1e-4 and steady recall 1.1e-3 inside
+# JAX_BAND: the pinned run with the depth filter's posterior means
+# rounded to bfloat16 after each window, as a port that kept them in
+# bfloat16 would (PERF.md, PR 14).
+STREAM_TIGHT = 1e-4
+# The window whose id buffer phase 16 checks: frames 150-155, its
+# poseframe past the third wrap of the keyframe ring (frame 144).
+STREAM_CHECK_WINDOW = 25
 
 def track_sequence(name):
     """A tracking acceptance run's `make_sequence` keyword arguments, in
@@ -4544,6 +4608,224 @@ def tracking_acceptance_path(dev, out, smi, cpu_frames):
     return runs, v4
 
 
+@functools.lru_cache(maxsize=None)
+def repo_script(name):
+    """scripts/<name>.py of the repository as a module, loaded once."""
+    import importlib.util
+    path = os.path.join(REPO, "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def streaming_script():
+    """scripts/chip_acc_streaming_torch.py, the port's streaming
+    acceptance protocol, as a module."""
+    return repo_script("chip_acc_streaming_torch")
+
+
+def stream_verdict(row, ref):
+    """A streaming run's row against the JAX package's pinned run of the
+    same frames, `ref` (JAX_STREAM_ACCEPT): each key of STREAM_BAND
+    within its band (rmse relative) and, where the run took the pinned
+    schedule (no stale window, no superseded topology), within
+    STREAM_TIGHT relative; STREAM_EQUAL equal; every gate that the JAX
+    run passes passed. Returns (verdict, ok)."""
+    diff = {k: abs(row[k] - ref[k]) / (ref[k] if k == "idepth_rmse" else 1.0)
+            for k in STREAM_BAND}
+    rel = {k: abs(row[k] - ref[k]) / abs(ref[k]) for k in STREAM_BAND}
+    in_band = all(diff[k] <= STREAM_BAND[k] for k in diff)
+    took_pinned = row["stale_tri_windows"] == 0 and row["tri_superseded"] == 0
+    in_tight = all(r <= STREAM_TIGHT for r in rel.values())
+    unequal = {k: (row[k], ref[k]) for k in STREAM_EQUAL if row[k] != ref[k]}
+    jax_gates = streaming_script().gate_results(ref)
+    failed = [g for g, ok in jax_gates.items() if ok and not row["gates"][g]]
+    v = {"band_diff": diff, "in_band": in_band, "rel_diff": rel,
+         "in_tight": in_tight, "tight_applies": took_pinned,
+         "unequal": unequal,
+         "gates_passed_by_jax": [g for g, ok in jax_gates.items() if ok],
+         "gates_failed": failed,
+         "jax": {k: ref[k] for k in (*STREAM_BAND, *STREAM_EQUAL)}}
+    return v, (in_band and (in_tight or not took_pinned) and not unequal
+               and not failed)
+
+
+def perframe_steady_recall(telemetry):
+    """steady_recall (the protocol's last-150 mean) of a per-frame run
+    from its telemetry.jsonl; None without the file."""
+    import numpy as np
+    from flame_ros_torch.models.engine import DEVICE_STATS_KEYS
+    if not os.path.exists(telemetry):
+        return None
+    with open(telemetry) as f:
+        recs = [json.loads(line) for line in f]
+    rows = np.asarray([[r[k] for k in DEVICE_STATS_KEYS] for r in recs])
+    return streaming_script().summarize([rows], DEVICE_STATS_KEYS,
+                                        len(recs))["steady_recall"]
+
+
+def streaming_acceptance_path(dev, out, smi, cpu_frames):
+    """Phase 16: the streaming acceptance protocol
+    (scripts/chip_acc_streaming_torch.py) on the card over phase 14's
+    default frames, each equal to the CPU's. (a) the free run (the
+    product): its six gates, 200 frames, none failed, every frame
+    healthy, v4 launched on every frame (its wrapper's count read after
+    each frame's smooth step) and v2 and v3 never, the device work
+    counters agreeing, the id buffer of window STREAM_CHECK_WINDOW's last
+    frame equal to plain v4's recomputation; (b) every stats row read
+    asynchronously equal bit for bit to its window's tensor read after a
+    full synchronize; (c) the pinned run of the same frames, its launches
+    counted as the free run's: where the free run counted no stale window
+    and no superseded topology (it took the pinned schedule), every stats
+    row and every final state leaf equal bit for bit; otherwise the
+    counts recorded; (d) the pinned run held to JAX_STREAM_ACCEPT by
+    stream_verdict, and the tight band's control (see STREAM_TIGHT)
+    outside it. Prints fps, latency, ms/frame, host
+    Delaunay ms per poseframe and the install counters of both runs, and
+    steady recall beside phase 14's per-frame run of the same frames.
+    Returns the free run's wrapper launch counts."""
+    import types
+    import numpy as np
+    import torch
+    from flame_ros_torch.datasets.synthetic import VGA, make_sequence
+    from flame_ros_torch.models import engine as engine_mod
+    from flame_ros_torch.models.engine import state_to_numpy
+    from flame_ros_torch.ops import raster_cuda as rc
+    sa = streaming_script()
+    t_phase = time.perf_counter()
+    seq = make_sequence(ACCEPT_FRAMES, VGA, device=dev,
+                        **accept_sequence("default"))
+    digests = sequence_digests(seq)
+    frames, gt = sa.sequence_frames(seq, ACCEPT_FRAMES)
+    del seq
+    t_render = time.perf_counter() - t_phase
+    smooth = engine_mod._smooth_step
+
+    def counted_run(schedule, after_window=None):
+        """One streamed run from counters at 0, v4's count read after each
+        frame's smooth step (host counters: no sync). Returns the run,
+        v4's launches per frame, and the wrapper and device counts."""
+        marks = []
+
+        def counted(*args, **kw):
+            res = smooth(*args, **kw)
+            marks.append(rc.rasterize_tri_ids_v4.launches)
+            return res
+
+        rc.reset_counters()
+        engine_mod._smooth_step = counted
+        try:
+            run = sa.stream_acceptance(frames, gt, dev, schedule,
+                                       after_window=after_window)
+        finally:
+            engine_mod._smooth_step = smooth
+        launches, work = launch_counts(rc, dev)
+        return run, np.diff([0] + marks), launches, work
+
+    def kernels_ok(per_frame, launches, work):
+        return (len(per_frame) == ACCEPT_FRAMES and int(per_frame.min()) >= 1
+                and launches["v2"] == 0 and launches["v3"] == 0
+                and work == {"v4": launches["v4"], "v2": 0, "v3": 0})
+
+    # (a) the free run, the state held after the check window.
+    held = {}
+
+    def hold(k, engine):
+        if k == STREAM_CHECK_WINDOW:
+            held.update(engine=types.SimpleNamespace(
+                cam=engine.cam, params=engine.params, state=engine.state),
+                frame=engine._frame_count - 1,
+                poseframes=sum(f[4] for f in frames[:engine._frame_count]))
+
+    free, free_pf, launches, work = counted_run("free", hold)
+    n_px, _ = check_idmap(held["engine"], held["frame"])
+    K = free.engine.params.engine.max_keyframes
+    health = [float(h) for a in free.rows for h in
+              a[:, engine_mod.DEVICE_STATS_KEYS.index("health")]]
+
+    # (b) the async reads against the same tensors read after a sync.
+    torch.cuda.synchronize()
+    async_differ = [k for k, (a, t) in enumerate(zip(free.rows,
+                                                     free.tensors))
+                    if a.tobytes() != t.cpu().numpy().tobytes()]
+
+    # (c) the pinned schedule on the same frames.
+    pinned, pinned_pf, p_launches, p_work = counted_run("pinned")
+    took_pinned = (free.row["stale_tri_windows"] == 0
+                   and free.row["tri_superseded"] == 0)
+    rows_differ = [k for k, (a, b) in enumerate(zip(free.rows, pinned.rows))
+                   if a.tobytes() != b.tobytes()]
+    fs, ps = state_to_numpy(free.engine.state), state_to_numpy(
+        pinned.engine.state)
+    leaves_differ = [k for k in ps if fs[k].tobytes() != ps[k].tobytes()]
+
+    # (d) the pinned run against the JAX package's pinned run, and the
+    # tight band's control: the pinned run with the filter's posterior
+    # means rounded to bfloat16 after each window.
+    verdict, ok_jax = stream_verdict(pinned.row, JAX_STREAM_ACCEPT)
+
+    def mu_bf16(k, engine):
+        f = engine.state.feat
+        engine.state = engine.state._replace(
+            feat=f._replace(mu=f.mu.bfloat16().float()))
+
+    control = sa.stream_acceptance(frames, gt, dev, "pinned",
+                                   after_window=mu_bf16)
+    control_verdict, _ = stream_verdict(control.row, JAX_STREAM_ACCEPT)
+    differ = frames_differ(digests, cpu_frames.digests(
+        ACCEPT_FRAMES, accept_sequence("default")))
+    same = not any(differ.values())
+    checks = {
+        "free_passes_gates": free.row["pass"],
+        "frames_200_none_failed": (free.row["frames"] == ACCEPT_FRAMES
+                                   and free.row["frames_failed"] == 0
+                                   and free.row["failed_windows"] == 0),
+        "healthy": len(health) == ACCEPT_FRAMES and min(health) == 1.0,
+        "v4_every_frame_no_v2_v3": kernels_ok(free_pf, launches, work),
+        "pinned_v4_every_frame_no_v2_v3": kernels_ok(pinned_pf, p_launches,
+                                                     p_work),
+        "idmap_past_third_wrap": held["poseframes"] > 3 * K,
+        "async_reads_equal_synced": not async_differ,
+        "frames_equal_cpu": same,
+        "free_equals_pinned": (not rows_differ and not leaves_differ)
+        if took_pinned else None,
+        "pinned_held_to_jax": ok_jax,
+        "tight_band_sees_bf16_mu": not control_verdict["in_tight"]}
+    keys = ("fps", "latency_ms_p50", "latency_ms_p95", "ms_per_frame_p50",
+            "ms_per_frame_p95", "gt_prestage_s", "tri_host_ms_per_poseframe",
+            "topo_installs", "stale_tri_windows", "tri_superseded",
+            "tri_dropped", "idepth_rmse", "precision", "recall",
+            "steady_recall", "steady_coverage", "final_coverage",
+            "frames_evaluated", "gates")
+    phase("streaming_acceptance", card=smi,
+          ok=all(v is not False for v in checks.values()), checks=checks,
+          free={k: free.row[k] for k in keys},
+          pinned={k: pinned.row[k] for k in keys},
+          free_took_pinned_schedule=took_pinned,
+          rows_differ_from_pinned=rows_differ,
+          leaves_differ_from_pinned=leaves_differ, verdict=verdict,
+          bf16_mu_control={"rel_diff": control_verdict["rel_diff"],
+                        "in_tight": control_verdict["in_tight"],
+                        "in_band": control_verdict["in_band"],
+                        "pass": control.row["pass"]},
+          perframe_steady_recall=perframe_steady_recall(os.path.join(
+              out, "accept", "default", "telemetry.jsonl")),
+          launches={"free": launches, "pinned": p_launches},
+          work={"free": work, "pinned": p_work},
+          v4_per_frame_min={"free": int(free_pf.min()),
+                            "pinned": int(pinned_pf.min())},
+          idmap_check={"window": STREAM_CHECK_WINDOW,
+                       "frame": held["frame"],
+                       "poseframes_so_far": held["poseframes"],
+                       "order_split_px": n_px},
+          async_differ=async_differ, frames_differ=differ,
+          render_s=t_render, seconds=time.perf_counter() - t_phase)
+    failed = [k for k, v in checks.items() if v is False]
+    assert not failed, f"streaming acceptance failed: {failed}"
+    return launches
+
+
 def main():
     try:
         import torch
@@ -4916,6 +5198,9 @@ def main():
 
     # 15. the tracking-mode acceptance protocol --------------------------
     tracking_acceptance_path(dev, OUT, smi, cpu_frames)
+
+    # 16. the streaming acceptance protocol -------------------------------
+    launches16 = streaming_acceptance_path(dev, OUT, smi, cpu_frames)
     cpu_frames.close()
 
     # Result lines -----------------------------------------------------
@@ -4928,7 +5213,8 @@ def main():
         kernels.append({
             "name": f"raster_{name}", "route": "cuda",
             "source": "flame_ros_torch/csrc/raster.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name],
+            "launches": launches[name] + launches16[name],
             "max_abs_err": max_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})

@@ -224,12 +224,15 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "scripts", "stream_synthetic_torch.py")
+    for script in ("stream_synthetic_torch.py", "chip_acc_streaming_torch.py",
+                   "torch_profile.py"):
+        yield os.path.join(REPO, "scripts", script)
 
 
 def test_no_jax_imports_in_port():
-    """No file of the port, not chip_smoke.py and not the port's demo
-    feeder has an import statement naming jax, jaxlib or flame_ros_tpu;
+    """No file of the port, not chip_smoke.py and not the port's scripts
+    (the demo feeder, the streaming acceptance protocol, the profiler)
+    has an import statement naming jax, jaxlib or flame_ros_tpu;
     the port's demo scripts name neither package."""
     for sh in ("demo_torch.sh", "demo_live_torch.sh"):
         with open(os.path.join(REPO, "scripts", sh)) as f:
